@@ -128,7 +128,7 @@ def _load_snapshot(path):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="iyokan", description="TPU-native FHE circuit evaluation engine"
+        prog="iyokan", description="batched TFHE circuit evaluation engine"
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -141,12 +141,14 @@ def main(argv=None) -> int:
     g.add_argument("--secret-key", dest="secret_key")
     g.add_argument("--enable-gpu", action="store_true",
                    help="accepted for compatibility: the reference selects "
-                        "its cuFHE backend; here the TPU is the only "
-                        "accelerator class")
+                        "its cuFHE backend; here JAX's default device runs "
+                        "every bootstrap")
     g.add_argument("--gpu", type=int, default=None,
                    help="accepted for compatibility (unused)")
     g.add_argument("--num-gpu", type=int, default=None,
-                   help="accepted for compatibility (unused)")
+                   help="accepted for compatibility (unused; multi-card "
+                        "runs shard over parallel.mesh, not yet wired "
+                        "to this flag)")
 
     args = ap.parse_args(argv)
     level = logging.ERROR if args.quiet else (

@@ -305,7 +305,7 @@ def genevalkey(sk: SecretKey, seed: Optional[int] = None,
 
     # --- bootstrapping-key mask quantization ---------------------------------
     # The bk/bku TRGSW masks are drawn from the 256-grid (low byte zero)
-    # by default.  Why: the TPU engine's Toeplitz-slab kernel represents
+    # by default.  Why: the engine's Toeplitz-slab blind rotation represents
     # each key coefficient as its top 3 balanced radix-256 limbs
     # (crypto/polymul.py:tkey_prep1); for a full-torus mask the dropped
     # limb is a ~2^-25.8 per-coefficient error on the MASK component,

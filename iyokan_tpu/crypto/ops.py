@@ -13,8 +13,10 @@ Shapes (u32 = jnp.uint32, u64 = jnp.uint64):
   TRGSW lvl1  u32 [..., 2l, 2, N]     row i*l+j: digit j on part i
   TRLWE lvl2  u64 [..., 2, N2]
 
-All arithmetic is exact: torus ops are native wrap-around uint ops, and the
-negacyclic products run through the two-prime CRT NTT (crypto/ntt.py).
+All arithmetic is exact: torus ops are native wrap-around uint ops.  The
+gate bootstrap's negacyclic products are int8 GEMMs against Toeplitz windows
+of the key (slab_extprod); the CMUX-memory and lvl2 products run through
+the polymul backends' NTTs.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..parallel.mesh import replicated_sharding
 from ..params import Params
 from . import polymul
 from .polymul import c64
@@ -44,28 +47,33 @@ i64 = jnp.int64
 # --------------------------------------------------------------------------- #
 
 
+def gadget_digits(x: jnp.ndarray, ndig: int, p: Params) -> jnp.ndarray:
+    """Top `ndig` signed gadget digits of a 32-bit torus polynomial.
+
+    x: u32 [..., N]  ->  int32 [..., ndig, N], each digit in [-Bg/2, Bg/2).
+
+    The offset both centers the digits (Bg/2 per level) and rounds the
+    truncated tail to nearest (the 2^(31-ndig*Bgbit) term) -- without the
+    rounding bit the recomposition residual has a +half-step *bias* that
+    accumulates coherently through s1 and costs ~2.5 bits of noise budget.
+    """
+    offset = sum((p.Bg // 2) << (32 - (j + 1) * p.Bgbit) for j in range(ndig))
+    offset += 1 << (31 - ndig * p.Bgbit)
+    xp = x + u32(offset & 0xFFFFFFFF)
+    return jnp.stack([
+        ((xp >> u32(32 - (j + 1) * p.Bgbit)) & u32(p.Bg - 1)).astype(jnp.int32)
+        - p.Bg // 2
+        for j in range(ndig)
+    ], axis=-2)
+
+
 def decompose1(x: jnp.ndarray, p: Params) -> jnp.ndarray:
     """Signed gadget decomposition, 32-bit torus.
 
     x: u32 [..., 2, N]  ->  int32 [..., 2l, N], digit (i*l+j) for part i.
-
-    The offset both centers the digits (Bg/2 per level) and rounds the
-    truncated tail to nearest (the 2^(31-l*Bgbit) term) -- without the
-    rounding bit the recomposition residual has a +half-step *bias* that
-    accumulates coherently through s1 and costs ~2.5 bits of noise budget.
     """
-    offset = sum((p.Bg // 2) << (32 - (j + 1) * p.Bgbit) for j in range(p.l))
-    offset += 1 << (31 - p.l * p.Bgbit)
-    xp = x + u32(offset & 0xFFFFFFFF)
-    outs = []
-    for j in range(p.l):
-        shift = 32 - (j + 1) * p.Bgbit
-        d = ((xp >> u32(shift)) & u32(p.Bg - 1)).astype(jnp.int32) - p.Bg // 2
-        outs.append(d)
-    dig = jnp.stack(outs, axis=-3)                      # [..., l, 2, N]
-    # reorder to rows (part-major): row i*l+j
-    dig = jnp.moveaxis(dig, -3, -2)                     # [..., 2, l, N]
-    return dig.reshape(*dig.shape[:-3], 2 * p.l, dig.shape[-1])
+    return jnp.concatenate([gadget_digits(x[..., 0, :], p.l, p),
+                            gadget_digits(x[..., 1, :], p.l, p)], axis=-2)
 
 
 def decompose2(x: jnp.ndarray, p: Params) -> jnp.ndarray:
@@ -151,8 +159,8 @@ def rot_poly(poly: jnp.ndarray, r: jnp.ndarray, N: int) -> jnp.ndarray:
     dims (one rotation amount per batch row), values in [0, 2N).
 
     log2(2N) conditional static rolls instead of a per-element gather:
-    TPU gathers along the minor axis serialize, while static rolls are
-    concats and the selects are plain vector ops.
+    static rolls are concats and the selects are plain elementwise ops,
+    which XLA fuses into one loop.
     """
     x = poly
     nbits = (2 * N - 1).bit_length()
@@ -160,8 +168,6 @@ def rot_poly(poly: jnp.ndarray, r: jnp.ndarray, N: int) -> jnp.ndarray:
         rolled = _nega_roll(x, 1 << b, N) if (1 << b) <= N else (
             jnp.zeros((), x.dtype) - x
         )
-        # minor-dim insertion happens on the 32-bit value, not the i1:
-        # Mosaic only supports non-no-op minor reshapes for 32-bit types
         bit = ((r[..., None] >> b) & 1) != 0
         x = jnp.where(bit, rolled, x)
     return x
@@ -216,13 +222,14 @@ def _ks_digits(a: jnp.ndarray, t: int, basebit: int, width: int) -> jnp.ndarray:
 
 def matmul_mod32(d: jnp.ndarray, key_u32: jnp.ndarray,
                  limb_bits: int) -> jnp.ndarray:
-    """Exact (d @ key) mod 2^32 via bf16 limb matmuls on the MXU.
+    """Exact (d @ key) mod 2^32 via bf16 limb matmuls.
 
     d: small signed ints [..., K]; key_u32: u32 [K, M].  Each 32-bit key
     column is split into ceil(32/limb_bits) limbs; every limb product is an
     exact integer in f32 provided K * max|d| * (2^limb_bits - 1) < 2^24
-    (callers pick limb_bits accordingly).  TPU's MXU multiplies bf16 exactly
-    for integer inputs < 2^8 and accumulates in f32.
+    (callers pick limb_bits accordingly): bf16 holds integers < 2^8
+    exactly, and the f32 accumulation is exact below 2^24 at HIGHEST
+    precision (no TF32 rounding of the operands).
     """
     nl = -(-32 // limb_bits)
     mask = (1 << limb_bits) - 1
@@ -232,7 +239,8 @@ def matmul_mod32(d: jnp.ndarray, key_u32: jnp.ndarray,
         limb = ((key_u32 >> u32(limb_bits * l)) & u32(mask)).astype(
             jnp.bfloat16
         )
-        part = jnp.dot(df, limb, preferred_element_type=jnp.float32)
+        part = jnp.dot(df, limb, preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
         acc = acc + (part.astype(jnp.int32).astype(u32) << u32(limb_bits * l))
     return acc
 
@@ -240,8 +248,8 @@ def matmul_mod32(d: jnp.ndarray, key_u32: jnp.ndarray,
 def key_i8_limbs(key_u32: np.ndarray) -> np.ndarray:
     """Host: u32 key matrix [K, M] -> balanced radix-256 limbs
     int8 [4, K, M] with exact reconstruction key = sum_j limb_j * 256^j
-    (mod 2^32).  Centered digits fit int8 exactly, so limb matmuls ride
-    the MXU's int8 path (~4x the bf16 rate the u32 form needs)."""
+    (mod 2^32).  Centered digits fit int8 exactly, so limb matmuls run as
+    s8 x s8 -> s32 GEMMs (4 limbs instead of the bf16 form's 4-6)."""
     v = key_u32.astype(np.int64)
     limbs = []
     for _ in range(4):
@@ -252,7 +260,7 @@ def key_i8_limbs(key_u32: np.ndarray) -> np.ndarray:
 
 
 def matmul_mod32_i8(d: jnp.ndarray, key_i8: jnp.ndarray) -> jnp.ndarray:
-    """Exact (d @ key) mod 2^32 via int8 limb matmuls on the MXU.
+    """Exact (d @ key) mod 2^32 via int8 limb matmuls.
 
     d: small signed ints [..., K] with K * max|d| * 128 < 2^31 (int32
     accumulation is exact); key_i8: balanced limbs [4, K, M] from
@@ -275,7 +283,7 @@ def keyswitch_10(tlwe1: jnp.ndarray, ksk_mat: jnp.ndarray,
     tlwe1: u32 [..., N+1]; ksk_mat: u32 [N * t, n+1].
     The signed-digit scalar formulation turns the reference's per-digit table
     lookups (TFHEpp IdentityKeySwitch, used at src/iyokan_tfhepp.hpp:351)
-    into a dense [G, N*t] x [N*t, n+1] product -- the MXU-friendly shape.
+    into a dense [G, N*t] x [N*t, n+1] product -- one GEMM per limb.
     Exactness: K = N*t = 16384, |d| <= 1, limb 8 bits -> sums < 2^22.
     """
     a = tlwe1[..., : p.N]
@@ -283,7 +291,7 @@ def keyswitch_10(tlwe1: jnp.ndarray, ksk_mat: jnp.ndarray,
     d = _ks_digits(a, p.ks_t, p.ks_basebit, 32)          # [..., N, t]
     d = d.reshape(*d.shape[:-2], p.N * p.ks_t)
     if ksk_mat.ndim == 3 and ksk_mat.dtype == i8:
-        # balanced-limb key (key_i8_limbs): int8 MXU path, bit-identical
+        # balanced-limb key (key_i8_limbs): int8 GEMMs, bit-identical
         acc = matmul_mod32_i8(d, ksk_mat)
     else:
         acc = matmul_mod32(d, ksk_mat, limb_bits=8)
@@ -304,82 +312,71 @@ def _modswitch(x: jnp.ndarray, log2n: int) -> jnp.ndarray:
     )
 
 
+def slab_extprod(diff: jnp.ndarray, slab_step: jnp.ndarray,
+                 p: Params) -> jnp.ndarray:
+    """One Toeplitz-slab external product: decomp(diff) (x) TRGSW.
+
+    diff: u32 [G, 2, N]; slab_step: int8 [(l+lb)*N, 2*L*128], one step of
+    polymul.tkey_kernel_key (fat layout, L limbs, lb b-part digits).
+    Returns u32 [G, 2, N], exact mod 2^32 for the slab's key.
+
+    The negacyclic convolution of the digits against the shared TRGSW rows
+    is a matmul against Toeplitz windows of the key (polymul.tkey_prep1):
+
+      out[g, u, 128K + b] = sum_{j,t} ext[g, j, 128(K+1) + t] * slab_j[t, ub]
+
+    with ext = [d, -d] the negacyclic digit extension.  The slab rows are
+    ordered (block, j, lane), so output block K contracts the +-extension
+    rotated by 128*(l+lb)*(K+1) lanes; the N/128 rotations stack along M,
+    gate-major, into ONE s8 x s8 -> s32 GEMM against the step's slab (a
+    gates-sharded batch then splits the GEMM's M into whole gates, with no
+    data moving between devices).  Partial sums stay in int32 (|d| <=
+    Bg/2, |limb| <= 128, contraction (l+lb)*N), and the limbs recombine
+    with u32 shift-adds, exact mod 2^32.
+    """
+    G = diff.shape[0]
+    N = p.N
+    NB = N // 128
+    RT, C = slab_step.shape
+    RR = RT // N
+    L = C // 256
+    d = jnp.concatenate([gadget_digits(diff[:, 0], p.l, p),
+                         gadget_digits(diff[:, 1], RR - p.l, p)], axis=1)
+    ext = (d.astype(i8).reshape(G, RR, NB, 128)
+           .transpose(0, 2, 1, 3).reshape(G, RT))
+    full = jnp.concatenate([ext, -ext], axis=1)           # [G, 2*RT]
+    grp = RR * 128
+    wins = jnp.stack(
+        [full[:, grp * (K + 1):grp * (K + 1) + RT] for K in range(NB)],
+        axis=1).reshape(G * NB, RT)
+    s = jax.lax.dot_general(wins, slab_step, (((1,), (0,)), ((), ())),
+                            preferred_element_type=jnp.int32)
+    s = s.reshape(G, NB, 2, L, 128).astype(u32)
+    z = s[:, :, :, 0] << u32(8 * (4 - L))
+    for li in range(1, L):
+        z = z + (s[:, :, :, li] << u32(8 * (4 - L + li)))
+    return z.transpose(0, 2, 1, 3).reshape(G, 2, N)       # [G, 2, N]
+
+
 def blind_rotate(tlwe0: jnp.ndarray, bk_prep: jnp.ndarray, testv: jnp.ndarray,
                  p: Params, backend=None) -> jnp.ndarray:
     """Batched blind rotation lvl0 -> TRLWE lvl1.
 
-    tlwe0: u32 [G, n+1]; bk_prep: backend-prepared BK with leading [n] axis;
-    testv: u32 [N].  Returns u32 [G, 2, N] with phase testv * X^{-phase_2N}.
+    tlwe0: u32 [G, n+1]; testv: u32 [N].  Returns u32 [G, 2, N] with phase
+    testv * X^{-phase_2N}.  bk_prep selects the external product:
+
+      int8 [n, (l+lb)*N, 2L*128]   Toeplitz slab (DeviceKeys default):
+                                   one int8 GEMM per step, slab_extprod;
+      [n, 2l, 2, P, N]             backend NTT transform of bk;
+      [ceil(n/2), 6l, 2, P, N]     the 2-bit unrolled NTT key (bku).
 
     The whole gate batch advances through the n CMUX steps together: the
     per-step TRGSW is shared (it is the bootstrapping key), only the rotation
-    amounts differ per row.  This is the TPU-native inversion of the
-    reference's one-bootstrap-per-task design.
+    amounts differ per row.  This is the batched inversion of the
+    reference's one-bootstrap-per-task design.  Under an active mesh the
+    gates axis of tlwe0 stays sharded: every op here is row-parallel
+    against the replicated key, so GSPMD partitions the loop as it is.
     """
-    import os as _os
-
-    impl = _os.environ.get("IYOKAN_BR_IMPL")
-    # layout dispatch: plain/unrolled prep1 keys are 5-d
-    # [n, rows, 2, P, N]; the pallas_ep kernel-layout key is 6-d
-    # [n, P, R, RR, 2, C].  The ndim guard prevents a kernel-layout key
-    # whose R happens to equal 2l from being misrouted (advisor, round 1).
-    if bk_prep.ndim == 5 and bk_prep.shape[-4] == 2 * p.l:
-        if impl == "pallas":
-            from ..ops.pallas_br import blind_rotate_pallas
-
-            return blind_rotate_pallas(tlwe0, bk_prep, testv, p)
-        if impl == "pallas2":
-            from ..ops.pallas_br2 import blind_rotate_pallas2
-
-            return blind_rotate_pallas2(tlwe0, bk_prep, testv, p)
-    if bk_prep.ndim in (3, 4) and bk_prep.dtype == jnp.int8:
-        # Toeplitz-slab kernel key (built only when IYOKAN_BR_IMPL=tkey):
-        # the no-NTT direct-convolution kernel.  [n, 2l, N, 2L*128] =
-        # thin layout, [n, 2l*N, 2L*128] = fat (j in the contraction).
-        from ..ops.pallas_tk import blind_rotate_tkey
-        from ..parallel import mesh as mesh_mod
-
-        # GSPMD cannot partition a pallas_call (no partitioning rule is
-        # declared), so under an active mesh a sharded batch would be
-        # all-gathered back to every chip before the kernel.  shard_map
-        # keeps the gates axis sharded: each chip runs the kernel on its
-        # own rows against the replicated key (same placement contract
-        # as the XLA path, tests/test_parallel.py).
-        mesh = mesh_mod.get_mesh()
-        G = tlwe0.shape[0]
-        if mesh is not None:
-            n_dev = mesh.devices.size
-            if (G % n_dev == 0
-                    and G // n_dev >= mesh_mod._min_rows_per_device()):
-                from jax.sharding import PartitionSpec as P
-
-                fn = jax.shard_map(
-                    lambda t, bk, tv: blind_rotate_tkey(t, bk, tv, p),
-                    mesh=mesh,
-                    in_specs=(P("gates"), P(*([None] * bk_prep.ndim)),
-                              P(None)),
-                    out_specs=P("gates"),
-                    # pallas_call declares no varying-mesh-axes info, so
-                    # the vma check cannot see through it
-                    check_vma=False,
-                )
-                return fn(tlwe0, bk_prep, testv)
-        return blind_rotate_tkey(tlwe0, bk_prep, testv, p)
-    if (
-        impl == "v3"
-        and bk_prep.ndim == 5
-        and bk_prep.shape[-4] in (2 * p.l, 6 * p.l)
-        and bk_prep.shape[-2] == len(polymul.PRIMES1)
-    ):
-        # v3 consumes the MXUBackend prep1 layout only (PRIMES1 residues
-        # in the 4-step slot order), plain or 2-bit-unrolled rows; the
-        # crt64 prep has a 2-wide prime axis and falls through to the
-        # XLA path.
-        from ..ops.pallas_br3 import blind_rotate_pallas3
-
-        return blind_rotate_pallas3(tlwe0, bk_prep, testv, p)
-
-    be = backend or polymul.get_backend()
     G = tlwe0.shape[0]
     abar = _modswitch(tlwe0[:, : p.n], p.logN)           # [G, n]
     bbar = _modswitch(tlwe0[:, p.n], p.logN)             # [G]
@@ -389,13 +386,24 @@ def blind_rotate(tlwe0: jnp.ndarray, bk_prep: jnp.ndarray, testv: jnp.ndarray,
     )
     acc = jnp.stack([jnp.zeros((G, p.N), u32), acc_b], axis=1)  # [G, 2, N]
 
+    if bk_prep.dtype == i8:
+        def body(i, acc):
+            r = abar[:, i][:, None]                      # [G, 1] per part
+            rot = rot_poly(acc, jnp.broadcast_to(r, acc.shape[:-1]), p.N)
+            g = jax.lax.dynamic_index_in_dim(bk_prep, i, axis=0,
+                                             keepdims=False)
+            return acc + slab_extprod(rot - acc, g, p)
+
+        return jax.lax.fori_loop(0, p.n, body, acc)
+
+    be = backend or polymul.get_backend()
     # bk row count distinguishes the plain key (2l rows/step) from the
     # 2-bit unrolled key (3*2l rows per key-bit *pair*): the unrolled form
     #   X^(a1 s1 + a2 s2) = 1 + s1(1-s2)(X^a1 - 1) + s2(1-s1)(X^a2 - 1)
     #                         + s1 s2 (X^(a1+a2) - 1)
     # halves the sequential depth at 1.5x products per consumed key bit,
     # fused into one 3*2l-row external product.
-    if bk_prep.ndim == 5 and bk_prep.shape[-4] == 6 * p.l:
+    if bk_prep.shape[-4] == 6 * p.l:
         nh = bk_prep.shape[0]
         pad = 2 * nh - p.n
         if pad:
@@ -423,20 +431,6 @@ def blind_rotate(tlwe0: jnp.ndarray, bk_prep: jnp.ndarray, testv: jnp.ndarray,
             return acc + be.extprod1(d, g, p)
 
         return jax.lax.fori_loop(0, nh, body, acc)
-
-    if bk_prep.ndim == 6:
-        # kernel-layout key [n, P, R, RR, 2, C]: fused Pallas external
-        # product (ops/pallas_ep.py), whole per-prime pipeline in VMEM.
-        from ..ops.pallas_ep import extprod1_fused
-
-        def body(i, acc):
-            r = abar[:, i][:, None]
-            rot = rot_poly(acc, jnp.broadcast_to(r, acc.shape[:-1]), p.N)
-            g = jax.lax.dynamic_index_in_dim(bk_prep, i, axis=0,
-                                             keepdims=False)
-            return acc + extprod1_fused(decompose1(rot - acc, p), g, p)
-
-        return jax.lax.fori_loop(0, p.n, body, acc)
 
     def body(i, acc):
         r = abar[:, i][:, None]                          # [G, 1] per part
@@ -587,55 +581,67 @@ def circuit_bootstrap(tlwe0: jnp.ndarray, bk2_prep: jnp.ndarray,
 # --------------------------------------------------------------------------- #
 
 def tkey_default_config(p: Params):
-    """The tkey-kernel config the engine uses on TPU when no IYOKAN_*
-    knob overrides it: (limbs, layout, lb).  Single source of truth for
-    from_evalkey AND the noise-regression test (test_noise_and_params.py),
-    so a default flip that eats the noise margin fails in CI, not in a
-    100k-gate device run."""
+    """The Toeplitz-slab config the engine uses when no IYOKAN_* knob
+    overrides it: (limbs, lb).  Single source of truth for from_evalkey
+    AND the noise-regression test (test_noise_and_params.py), so a default
+    flip that eats the noise margin fails in CI, not in a 100k-gate run."""
     L = int(os.environ.get("IYOKAN_TKEY_LIMBS", "3"))
-    lay = os.environ.get("IYOKAN_TK_LAYOUT", "fat")
     # default lb=2 (asymmetric gadget): drops the least-significant b-part
     # digit rows, cutting contraction rows 2l -> l+2 (5/6 of the MACs at
     # l=3).  The dropped digit's error enters the phase directly (not via
-    # the secret): measured sigma 2^-9.51 pre-KS vs 2^-9.73 at lb=l, well
-    # inside the 2^-8.2 budget (test_noise_and_params.py asserts this
-    # config).
+    # the secret): sigma 2^-9.51 pre-KS vs 2^-9.73 at lb=l, well inside
+    # the 2^-8.2 budget (test_noise_and_params.py asserts this config).
     lb = int(os.environ.get("IYOKAN_TK_LB", str(min(2, p.l))))
     if not 1 <= lb <= p.l:
         raise ValueError(
-            f"IYOKAN_TK_LB={lb} out of range: need 1 <= lb <= "
-            f"l={p.l} (lb=0 would be misread as a plain fat layout "
-            f"by the kernel's row-count inference)")
-    return L, lay, lb
+            f"IYOKAN_TK_LB={lb} out of range: need 1 <= lb <= l={p.l}")
+    return L, lb
 
 
-# Bounded LRU: one prepared key set is multi-GB on device (the tkey slab
-# alone is ~2.9 GB at cggi128), so only the most recent few (params, config,
-# fingerprint) variants are pinned; older entries are dropped so the device
-# allocator can reclaim them (config sweeps toggle IYOKAN_* knobs per run).
+# Bounded LRU: one prepared key set is GBs on device (the slab alone is
+# 635 x 5120 x 768 int8 = 2.5 GB at cggi128), so only the most recent few
+# (params, config, fingerprint) variants are pinned; older entries are
+# dropped so the device allocator can reclaim them.
 _DEVICE_KEY_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _DEVICE_KEY_CACHE_MAX = int(os.environ.get("IYOKAN_KEY_CACHE_SLOTS", "2"))
 
 
 def _slab_disk_path(cache_key):
-    """On-disk cache location for the expanded tkey slab (or None).
+    """On-disk cache location for the expanded slab, or None (default).
 
-    The host-side Toeplitz expansion is ~31 s at cggi128 for a 2.33 GiB
-    int8 slab that np.load brings back in ~2 s -- and every fresh process
-    (bench, the registry runner, each tool) pays it otherwise.  Keyed by
-    the same fingerprint tuple as the in-process LRU (key material hash +
-    every prep-affecting env knob), so a stale hit is as unlikely as a
-    wrong in-process hit.  IYOKAN_SLAB_CACHE=0 disables; a directory
-    value overrides the location (default: the IYOKAN_KEY_CACHE dir)."""
+    The host-side Toeplitz expansion of a cggi128 key is tens of seconds
+    for a 2.5 GB int8 slab that np.load brings back much faster, so
+    processes that share a key can share its slab through the directory
+    named by IYOKAN_SLAB_CACHE.  Keyed by the same fingerprint tuple as
+    the in-process LRU (key material hash + every prep-affecting env
+    knob), so a stale hit is as unlikely as a wrong in-process hit."""
     d = os.environ.get("IYOKAN_SLAB_CACHE", "")
-    if d == "0":
-        return None
     if not d:
-        d = os.environ.get("IYOKAN_KEY_CACHE", "/tmp/iyokan-keys")
+        return None
     import hashlib
 
     tag = hashlib.sha1(repr(cache_key).encode()).hexdigest()[:16]
     return os.path.join(d, f"tkslab-{tag}.npy")
+
+
+def _load_or_build_slab(src, p: Params, L: int, lb: int, cache_key):
+    spath = _slab_disk_path(cache_key)
+    if spath and os.path.exists(spath):
+        try:
+            return np.load(spath)
+        except (OSError, ValueError):
+            pass
+    slab = polymul.tkey_kernel_key(src, p, L, lb=lb)
+    if spath:
+        try:
+            os.makedirs(os.path.dirname(spath), exist_ok=True)
+            tmp = f"{spath}.tmp{os.getpid()}"
+            with open(tmp, "wb") as f:
+                np.save(f, slab)
+            os.replace(tmp, spath)
+        except OSError:
+            pass
+    return slab
 
 
 @dataclasses.dataclass
@@ -649,35 +655,20 @@ class DeviceKeys:
 
     params: Params
     backend: object         # polymul backend
-    bkntt: jnp.ndarray      # backend-prepared BK, leading [n] axis
+    bkntt: jnp.ndarray      # BK for blind_rotate: int8 slab or NTT prep
     ksk_mat: jnp.ndarray    # u32 [N*t, n+1]
     bk2ntt: jnp.ndarray     # backend-prepared BK2, leading [n] axis (or [0])
     pksk_mats: Tuple[jnp.ndarray, jnp.ndarray]  # u32 [N2*t21, 2N] each
     bkuntt: jnp.ndarray = None  # 2-bit-unrolled BK prep (latency path)
     bk2untt: jnp.ndarray = None  # 2-bit-unrolled BK2 prep (CB latency path)
-    bk_tk_small: jnp.ndarray = None  # 2-bit-unrolled tkey slab (small G)
 
     def bk_for(self, batch: int) -> jnp.ndarray:
-        """Route a batch to the fastest blind-rotate key for its size.
-
-        On the tkey (Toeplitz-slab) impl the plain slab wins at EVERY
-        batch size (SMALLG_r04.log: 2945/3997/4713 gates/s at G=32/64/128
-        via kmaj vs 1208/1476/1596 on the round-3 bku-NTT route, and the
-        2-bit unrolled slab loses too -- tripled per-step VPU work beats
-        the halved depth at latency-bound sizes), so the default is: slab
-        for everything.  IYOKAN_UNROLL_MAX > 0 re-enables the bku NTT
-        route for batches <= the threshold (and stays the small-batch
-        default on non-tkey backends, where it is the only latency play);
-        IYOKAN_TK_SMALL=1 builds + routes an unrolled slab for batches <=
-        IYOKAN_TK_SMALL_MAX (kept as an opt-in experiment)."""
-        tkey = self.bkntt.dtype == jnp.int8
-        thr = int(os.environ.get("IYOKAN_UNROLL_MAX",
-                                 "0" if tkey else "256"))
-        if self.bkuntt is not None and batch <= thr:
+        """Route a batch to its blind-rotate key.  The slab (the default
+        route) serves every batch size; on the NTT route, batches of at
+        most 256 rows take the 2-bit unrolled key (half the sequential
+        depth)."""
+        if self.bkuntt is not None and batch <= 256:
             return self.bkuntt
-        if self.bk_tk_small is not None and batch <= int(
-                os.environ.get("IYOKAN_TK_SMALL_MAX", "256")):
-            return self.bk_tk_small
         return self.bkntt
 
     def bk2_for(self) -> jnp.ndarray:
@@ -690,15 +681,27 @@ class DeviceKeys:
     @staticmethod
     def from_evalkey(ek: EvalKey, with_cb: bool = True,
                      backend=None) -> "DeviceKeys":
+        """Prepare ek for the device.  IYOKAN_BR_IMPL picks the gate
+        bootstrap's external product: "tkey" (default, every platform) is
+        the Toeplitz-slab int8 GEMM (blind_rotate / slab_extprod); "ntt"
+        is the backend's NTT transform of bk.
+
+        Under an active mesh (parallel.mesh) every key is placed whole on
+        each device of the mesh as it is built, so each device, the first
+        included, holds one copy."""
         p = ek.params
         be = backend or polymul.get_backend()
         if ek.bk2.shape[0] == 0:
             with_cb = False
+        impl = os.environ.get("IYOKAN_BR_IMPL", "tkey")
+        if impl not in ("tkey", "ntt"):
+            raise ValueError(
+                f"IYOKAN_BR_IMPL={impl!r}: expected 'tkey' or 'ntt'")
 
-        # Device-key prep is expensive (the tkey expansion alone is a
-        # 2.9 GB host build + transfer at cggi128): cache on key-material
-        # fingerprint + prep-affecting config so repeated engine builds
-        # within one process (e.g. the integration registry) reuse it.
+        # Device-key prep is expensive (the slab is a 2.5 GB host build +
+        # transfer at cggi128): cache on key-material fingerprint +
+        # prep-affecting config so repeated engine builds within one
+        # process (e.g. the integration registry) reuse it.
         import hashlib
 
         # Prefix hash: only the leading rows of each key component are
@@ -716,144 +719,88 @@ class DeviceKeys:
                 h.update(np.asarray(ek.bk2u[:1]).tobytes())
         if ek.bku is not None:
             h.update(np.asarray(ek.bku[:1]).tobytes())
+        rep = replicated_sharding()
         cache_key = (
             p.name, bool(with_cb), be.name, h.hexdigest(),
             tuple(os.environ.get(k) for k in (
-                "IYOKAN_BR_IMPL", "IYOKAN_TK_LAYOUT", "IYOKAN_TKEY_LIMBS",
-                "IYOKAN_NO_UNROLL", "IYOKAN_TK_UNROLL", "IYOKAN_EP",
-                "IYOKAN_TK_LB", "IYOKAN_TK_SMALL", "IYOKAN_UNROLL_MAX",
-                "IYOKAN_KS_I8")),
+                "IYOKAN_BR_IMPL", "IYOKAN_TKEY_LIMBS", "IYOKAN_NO_UNROLL",
+                "IYOKAN_TK_LB", "IYOKAN_KS_I8")),
+            None if rep is None else tuple(
+                d.id for d in rep.mesh.devices.flat),
         )
         hit = _DEVICE_KEY_CACHE.get(cache_key)
         if hit is not None:
             _DEVICE_KEY_CACHE.move_to_end(cache_key)
             return hit
 
-        # Default blind-rotate implementation: the Toeplitz-slab matmul
-        # kernel on TPU (fastest measured path, PERF.md round 2: 6187
-        # gates/s vs 2061 for the XLA NTT pipeline), the XLA NTT pipeline
-        # on CPU (where Pallas only runs in interpret mode).
-        impl = os.environ.get("IYOKAN_BR_IMPL")
-        if impl is None and be.name == "mxu":
-            impl = "tkey"
+        def put(x):
+            """host array -> device(s)"""
+            return jax.device_put(x, rep)
+
+        def prep(f, x):
+            """jitted key transform, its output placed like put's"""
+            kw = {} if rep is None else {"out_shardings": rep}
+            return jax.jit(f, **kw)(x)
+
         if impl == "tkey":
-            # Toeplitz-slab key (host expansion + one transfer): the
-            # gate-bootstrap path runs the no-NTT ops/pallas_tk kernel.
-            L, lay, lb = tkey_default_config(p)
-            # 2-bit unrolled slabs (opt-in): per KEY BIT, 3/4 the matmul
-            # MACs and 3/4 the VPU work at half the sequential depth.
-            # Composes with the asymmetric gadget (lb) and the pipelined
-            # kernel; the round-2 "throughput loss" (232 vs 165 ms/1024
-            # gates) was the SERIAL kernel, whose per-step VPU work sits
-            # on the critical path.
-            tku = (ek.bku is not None and lay == "fat"
-                   and os.environ.get("IYOKAN_TK_UNROLL", "0") != "0")
-            if tku:
-                src = ek.bku.reshape(ek.bku.shape[0], 6 * p.l, 2, p.N)
-            else:
-                src = ek.bk
-            if L < 4 and np.any(src[:2, :, 0, :] & ((1 << (8 * (4 - L))) - 1)):
+            L, lb = tkey_default_config(p)
+            if L < 4 and np.any(
+                    ek.bk[:2, :, 0, :] & ((1 << (8 * (4 - L))) - 1)):
                 # host.genevalkey quantizes bk masks to the 256-grid so the
                 # truncated slab is exact on the mask component; a key with
                 # full-torus masks (pre-quantization snapshot, or
-                # IYOKAN_BK_MASK_BITS=32) rides this kernel with ~2^-6
-                # phase noise -- enough to corrupt cascaded gates.
+                # IYOKAN_BK_MASK_BITS=32) gets ~2^-6 phase noise from the
+                # slab -- enough to corrupt cascaded gates.
                 import warnings
 
                 warnings.warn(
                     "eval key has unquantized bootstrapping-key masks: the "
-                    f"{L}-limb Toeplitz-slab kernel adds ~2^-6 phase noise "
+                    f"{L}-limb Toeplitz slab adds ~2^-6 phase noise "
                     "on such keys. Regenerate the eval key (host.genevalkey "
                     "quantizes masks by default) or set IYOKAN_TKEY_LIMBS=4.")
-            # asymmetric gadget (see tkey_kernel_key): lb b-part digits
-            slab = None
-            spath = _slab_disk_path(cache_key)
-            if spath and os.path.exists(spath):
-                try:
-                    slab = np.load(spath)
-                except (OSError, ValueError):
-                    slab = None
-            if slab is None:
-                slab = polymul.tkey_kernel_key(src, p, L, lay, lb=lb)
-                if spath:
-                    try:
-                        os.makedirs(os.path.dirname(spath), exist_ok=True)
-                        tmp = f"{spath}.tmp{os.getpid()}"
-                        with open(tmp, "wb") as f:
-                            np.save(f, slab)
-                        os.replace(tmp, spath)
-                    except OSError:
-                        pass
-            bkntt = jnp.asarray(slab)
+            bkntt = put(_load_or_build_slab(ek.bk, p, L, lb, cache_key))
         else:
-            tku = False
-            bkntt = jax.jit(lambda bk: be.prep1(bk, p))(jnp.asarray(ek.bk))
-        if (os.environ.get("IYOKAN_EP") == "pallas" and be.name == "mxu"
-                and impl != "tkey"):
-            from ..ops.pallas_ep import prep_kernel_key
-
-            bkntt = jax.jit(lambda b: prep_kernel_key(b, p.N))(bkntt)
-        # OPT-IN 2-bit-unrolled tkey slab for small batches (bk_for): a
-        # measured LOSS at G=32..128 (SMALLG_r04.log: tripled per-step VPU
-        # work beats the halved depth), kept behind IYOKAN_TK_SMALL=1 as
-        # the documented experiment.  Skipped when the main slab is
-        # already unrolled (IYOKAN_TK_UNROLL=1).
-        bk_tk_small = None
-        if (impl == "tkey" and not tku and ek.bku is not None
-                and lay == "fat"
-                and os.environ.get("IYOKAN_TK_SMALL", "0") == "1"):
-            bku_rows = ek.bku.reshape(ek.bku.shape[0], 6 * p.l, 2, p.N)
-            bk_tk_small = jnp.asarray(
-                polymul.tkey_kernel_key(bku_rows, p, L, "fat", lb=lb))
+            bkntt = prep(lambda bk: be.prep1(bk, p), jnp.asarray(ek.bk))
         bkuntt = None
-        # the 2-bit-unrolled NTT key is kept when bk_for can still route
-        # to it: always on non-tkey backends (the only small-batch play
-        # there), on tkey only when IYOKAN_UNROLL_MAX > 0 re-enables the
-        # legacy route (default 0: the slab beats it at every size)
-        if (ek.bku is not None and not os.environ.get("IYOKAN_NO_UNROLL")
-                and (impl != "tkey"
-                     or int(os.environ.get("IYOKAN_UNROLL_MAX", "0")) > 0)):
+        # the 2-bit-unrolled NTT key: the NTT route's small-batch key
+        if (impl == "ntt" and ek.bku is not None
+                and not os.environ.get("IYOKAN_NO_UNROLL")):
             bku = ek.bku.reshape(ek.bku.shape[0], 3 * 2 * p.l, 2, p.N)
-            bkuntt = jax.jit(lambda bk: be.prep1(bk, p))(jnp.asarray(bku))
-        # key switches as int8 limb matmuls on the MXU backend (~4x the
-        # bf16 limb path, bit-identical; IYOKAN_KS_I8=0 restores u32 keys)
+            bkuntt = prep(lambda bk: be.prep1(bk, p), jnp.asarray(bku))
+        # key switches as int8 limb matmuls on the mxu backend (bit-identical
+        # to the bf16 limb path; IYOKAN_KS_I8=0 restores u32 keys)
         ks_i8 = (be.name == "mxu"
                  and os.environ.get("IYOKAN_KS_I8", "1") != "0")
         ksk_flat = ek.ksk.reshape(p.N * p.ks_t, p.n + 1)
-        ksk_mat = jnp.asarray(key_i8_limbs(ksk_flat) if ks_i8
-                              else ksk_flat)
+        ksk_mat = put(key_i8_limbs(ksk_flat) if ks_i8 else ksk_flat)
 
         bk2untt = None
         if with_cb:
-            bk2ntt = jax.jit(lambda bk2: be.prep2(bk2, p))(
-                jnp.asarray(ek.bk2, u64)
-            )
+            bk2ntt = prep(lambda bk2: be.prep2(bk2, p),
+                          jnp.asarray(ek.bk2, u64))
             if (ek.bk2u is not None and ek.bk2u.size
                     and not os.environ.get("IYOKAN_NO_UNROLL")):
                 b2u = ek.bk2u.reshape(
                     ek.bk2u.shape[0], 3 * 2 * p.l2, 2, p.N2
                 )
-                bk2untt = jax.jit(lambda z: be.prep2(z, p))(
-                    jnp.asarray(b2u, u64)
-                )
+                bk2untt = prep(lambda z: be.prep2(z, p),
+                               jnp.asarray(b2u, u64))
             pk = ek.pksk  # u32 [2, N2, t, 2, N]
             mats = tuple(
-                jnp.asarray(
-                    key_i8_limbs(pk[i].reshape(p.N2 * p.pks_t, 2 * p.N))
+                put(key_i8_limbs(pk[i].reshape(p.N2 * p.pks_t, 2 * p.N))
                     if ks_i8 else
                     pk[i].reshape(p.N2 * p.pks_t, 2 * p.N))
                 for i in (0, 1)
             )
         else:
-            bk2ntt = jax.jit(lambda z: be.prep2(z, p))(
-                jnp.zeros((0, 2 * p.l2, 2, p.N2), u64)
-            )
+            bk2ntt = prep(lambda z: be.prep2(z, p),
+                          jnp.zeros((0, 2 * p.l2, 2, p.N2), u64))
             mats = (
-                jnp.zeros((p.N2 * p.pks_t, 2 * p.N), u32),
-                jnp.zeros((p.N2 * p.pks_t, 2 * p.N), u32),
+                put(np.zeros((p.N2 * p.pks_t, 2 * p.N), np.uint32)),
+                put(np.zeros((p.N2 * p.pks_t, 2 * p.N), np.uint32)),
             )
         dk = DeviceKeys(p, be, bkntt, ksk_mat, bk2ntt, mats, bkuntt,
-                        bk2untt, bk_tk_small)
+                        bk2untt)
         _DEVICE_KEY_CACHE[cache_key] = dk
         while len(_DEVICE_KEY_CACHE) > _DEVICE_KEY_CACHE_MAX:
             _DEVICE_KEY_CACHE.popitem(last=False)
@@ -864,7 +811,7 @@ jax.tree_util.register_pytree_node(
     DeviceKeys,
     lambda dk: (
         (dk.bkntt, dk.ksk_mat, dk.bk2ntt, dk.pksk_mats, dk.bkuntt,
-         dk.bk2untt, dk.bk_tk_small),
+         dk.bk2untt),
         (dk.params, dk.backend),
     ),
     lambda aux, children: DeviceKeys(aux[0], aux[1], *children),

@@ -10,16 +10,14 @@ the TRGSW row polynomials), computed exactly mod 2^32 (lvl1) / 2^64 (lvl2).
 Two interchangeable backends:
 
   CRT64Backend -- two ~31-bit primes, int64 NTT (crypto/ntt.py).  Exact and
-      fast on CPU, but unusable on TPU: XLA emulates 64-bit integer ops and
-      cannot lower s64 dots at all.
+      fast on CPU; on an accelerator 64-bit integer multiplies are emulated.
 
-  MXUBackend -- the TPU-native path.  Small NTT primes (12289/18433 for the
-      2048th-root lvl1 transforms; 12289/24577/40961 with 4096th roots for
-      lvl2), with
-        * the 4-step NTT (N = R*C) computed as [32x32]/[64x64] matmuls whose
-          operands are split into radix-256 limbs -- bf16 (or int8) inputs
-          with f32/s32 accumulation are exact for these ranges, so the MXU
-          does the transforms;
+  MXUBackend -- the matrix-unit path (the GPU default).  Small NTT primes
+      (12289/18433 for the 2048th-root lvl1 transforms; 12289/24577/40961
+      with 4096th roots for lvl2), with
+        * the NTT computed as matmuls whose operands are split into
+          radix-256 limbs -- int8 inputs with s32 accumulation are exact
+          for these ranges, so the tensor cores do the transforms;
         * the negacyclic psi-twist folded into the stage matrices (digits
           enter the first matmul raw, one limb wide);
         * modular reduction via an f32 Barrett (multiply by 1/p, round,
@@ -81,18 +79,12 @@ def _pointwise_chunk(p: int) -> int:
     <= (p//2)^2) fit iff p/2 + chunk*(p//2)^2 < 2^31."""
     return max(1, ((1 << 31) - 1 - p // 2) // ((p // 2) ** 2))
 
-@functools.lru_cache(maxsize=None)
-def _mm_dtypes():
-    """Matmul operand/accumulator dtypes: int8->s32 on TPU (2x MXU rate,
-    native support), bf16->f32 elsewhere.  Override with IYOKAN_MM_DTYPE."""
-    v = os.environ.get("IYOKAN_MM_DTYPE")
-    if v == "int8":
-        return jnp.int8, jnp.int32
-    if v == "bf16":
-        return jnp.bfloat16, jnp.float32
-    if jax.default_backend() == "tpu":
-        return jnp.int8, jnp.int32
-    return jnp.bfloat16, jnp.float32
+# Operand and accumulator types of the mxu backend's NTT matmuls (lvl2
+# circuit bootstrap, CMUX memory): int8 -> s32, exact for 8-bit limbs.  On
+# an H100 it took half the time of bf16 -> f32 for a circuit-bootstrap
+# batch at cggi128, with bit-identical output (PERF.md, Findings).
+_MM_DT = jnp.int8
+_MM_ACC = jnp.int32
 
 
 def _is_prime(p: int) -> bool:
@@ -168,12 +160,11 @@ def _limbs_i8(x_centered: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Exact small-int matmul on the MXU: [..., K] @ [K, M] -> int32."""
-    dt, acc = _mm_dtypes()
+    """Exact small-int matmul: [..., K] @ [K, M] -> int32."""
     out = jnp.einsum(
         "...k,km->...m",
-        a.astype(dt), b.astype(dt),
-        preferred_element_type=acc,
+        a.astype(_MM_DT), b.astype(_MM_DT),
+        preferred_element_type=_MM_ACC,
     )
     return out.astype(i32)
 
@@ -202,8 +193,8 @@ def _mm_data2(x_centered: jnp.ndarray, mat_hi: jnp.ndarray,
 
 def _split_rc(N: int) -> Tuple[int, int]:
     """N = R*C with C = 128 where possible: the stage-1 matmul then contracts
-    a full 128-lane axis (MXU-native tile), and stage 2's small K=R matmul is
-    a negligible fraction of the work."""
+    a full 128-wide axis, and stage 2's small K=R matmul is a negligible
+    fraction of the work."""
     c = min(128, N)
     return N // c, c  # (R, C)
 
@@ -250,8 +241,7 @@ def tables(N: int, primes: Tuple[int, ...]) -> Tuple[_PrimeTab, ...]:
             A[r,c]  = sum_q T2[q,c] * iW2[q,r], iW2[q,r] = w_R^{-qr} psi^{-rC}
 
     Every contraction maps to a plain matmul on the existing layout: no
-    transposes, no reordering -- important both for XLA fusion and for the
-    Pallas kernel where relayouts are expensive.
+    transposes, no reordering, which keeps XLA's fusions simple.
     """
     R, C = _split_rc(N)
     out = []
@@ -309,7 +299,7 @@ def full_fwd_tables(N: int, primes: Tuple[int, ...]):
     s*R+q): column f of the matrix is psi^i * w^(i*k(f)) centered mod p,
     i.e. exponent i*(2*k+1) of psi.  Used for the *digit* transforms, whose
     inputs fit one int8 limb: the whole transform is then a single K=N int8
-    matmul pair on the MXU with two Barrett reductions -- no t-twist int32
+    matmul pair with two Barrett reductions -- no t-twist int32
     multiplies, no intermediate stage reductions.
     """
     R, C = _split_rc(N)
@@ -335,17 +325,6 @@ def full_fwd_tables(N: int, primes: Tuple[int, ...]):
 
 
 @functools.lru_cache(maxsize=None)
-def _use_full_fwd() -> bool:
-    """Full-matrix digit NTT needs an exact int32 accumulator (sums of N
-    radix-256 limb products exceed f32's 24-bit mantissa), so it is only
-    sound with the int8->s32 MXU configuration."""
-    v = os.environ.get("IYOKAN_FWD_FULL")
-    if v is not None:
-        return v not in ("", "0")
-    return _mm_dtypes()[1] == jnp.int32
-
-
-@functools.lru_cache(maxsize=None)
 def _crt_direct_consts(primes: Tuple[int, ...], mod_bits: int):
     """CRT basis for direct reconstruction mod 2^mod_bits.
 
@@ -368,7 +347,7 @@ def _crt_direct_consts(primes: Tuple[int, ...], mod_bits: int):
 
 
 def crt_direct_mod32(res, primes) -> jnp.ndarray:
-    """Direct CRT mod 2^32: ~2x fewer VPU ops than Garner (no Barrett
+    """Direct CRT mod 2^32: ~2x fewer elementwise ops than Garner (no Barrett
     chain; one u32 MAC per prime plus one f32 dot for the mP correction)."""
     Eks, alphas, Pm = _crt_direct_consts(primes, 32)
     out = res[0].astype(u32) * u32(Eks[0])
@@ -474,7 +453,7 @@ def _stage_small(x: jnp.ndarray, mat: np.ndarray, p: int,
     """out[..., q, c] = sum_r x[..., r, c] * mat[r, q], centered-reduced.
 
     The contraction length R is tiny (8/16), so this unrolls into scalar
-    multiply-adds on the VPU: i32 products of centered residues are exact,
+    elementwise multiply-adds: i32 products of centered residues are exact,
     no limb splitting needed.  in_bound bounds |x| for overflow chunking.
     """
     R = mat.shape[0]
@@ -499,13 +478,12 @@ def _stage_small(x: jnp.ndarray, mat: np.ndarray, p: int,
 
 
 def _mmT(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Small-int contraction over the second-minor axis on the MXU:
+    """Small-int contraction over the second-minor axis:
     out[..., q, c] = sum_r a[..., r, c] * b[r, q]."""
-    dt, acc = _mm_dtypes()
     out = jnp.einsum(
         "...rc,rq->...qc",
-        a.astype(dt), b.astype(dt),
-        preferred_element_type=acc,
+        a.astype(_MM_DT), b.astype(_MM_DT),
+        preferred_element_type=_MM_ACC,
     )
     return out.astype(i32)
 
@@ -513,7 +491,7 @@ def _mmT(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 def _stage_rows(x, w1_np, w1_hi, w1_lo, p, in_bound, small):
     """stage contraction over the small radix R.
 
-    small=True (|x| <= 128): single-limb data, two limb matmuls on the MXU.
+    small=True (|x| <= 128): single-limb data, two limb matmuls.
     Otherwise two data limbs x two matrix limbs.  Falls back to unrolled
     scalar MACs when IYOKAN_STAGE_SMALL=scalar.
     """
@@ -536,8 +514,8 @@ def _fwd(x: jnp.ndarray, N: int, tab: _PrimeTab, small_input: bool,
     """Negacyclic NTT, x int32 [..., N] -> centered residues [..., N]
     (NTT-domain slot (q, s) = flat index q*C+s holds frequency s*R+q).
 
-    consts: optional (w1_hi, w1_lo, t, w2_hi, w2_lo) jnp values -- Pallas
-    kernels must pass the tables as inputs rather than captured constants.
+    consts: optional (w1_hi, w1_lo, t, w2_hi, w2_lo) jnp values in place of
+    the tables' numpy constants.
     """
     R, C = _split_rc(N)
     p = tab.p
@@ -559,15 +537,15 @@ def twist_tables(N: int, primes: Tuple[int, ...]):
     """Batched-twist 2-stage NTT tables.
 
     The per-element twiddle multiplies of the 4-step transform (the only
-    int32 multiplies it needs on the VPU) fold into the stage matrices by
+    int32 elementwise multiplies it needs) fold into the stage matrices by
     making the big stage a *batched* matmul over the small radix q:
 
       fwd:   X[q,s] = sum_c U[q,c] * (T[q,c]*W2[c,s])     '..qc,qcs->..qs'
       inv:   T2[q,c] = sum_s X[q,s] * (iW1[s,c]*iT[q,c])  '..qs,qsc->..qc'
 
-    MXU cost is the 4-step's (K=128 contractions), ~4x (fwd) / ~7.5x (inv)
+    Matmul cost is the 4-step's (K=128 contractions), ~4x (fwd) / ~7.5x (inv)
     fewer MACs than the full [N,N] matrices, at one extra Barrett + limb
-    split per transform.  All partial sums stay exact even in f32 (K=128,
+    split per transform.  All partial sums stay well inside int32 (K=128,
     8-bit limb operands).
 
     Returns per-prime (tw2_hi, tw2_lo [R,C,C], itw_hi, itw_lo [R,C,C]).
@@ -603,10 +581,9 @@ def twist_tables(N: int, primes: Tuple[int, ...]):
 
 
 def _bmm(a: jnp.ndarray, b: jnp.ndarray, spec: str) -> jnp.ndarray:
-    """Batched small-int matmul on the MXU (batch over the radix axis)."""
-    dt, acc = _mm_dtypes()
-    return jnp.einsum(spec, a.astype(dt), b.astype(dt),
-                      preferred_element_type=acc).astype(i32)
+    """Batched small-int matmul (batch over the radix axis)."""
+    return jnp.einsum(spec, a.astype(_MM_DT), b.astype(_MM_DT),
+                      preferred_element_type=_MM_ACC).astype(i32)
 
 
 def fwd_twist2(x: jnp.ndarray, N: int, primes: Tuple[int, ...], pi: int,
@@ -666,35 +643,26 @@ def inv_twist2(x: jnp.ndarray, N: int, primes: Tuple[int, ...], pi: int,
 
 @functools.lru_cache(maxsize=None)
 def _ntt_impl() -> str:
-    """NTT implementation: 'twist2' (default), 'full', or '4step'.
-
-    twist2/full need exact accumulation; twist2's partial sums are exact
-    even in f32 (K<=128 with 8-bit limbs), full needs int32.
-    """
-    v = os.environ.get("IYOKAN_NTT")
-    if v in ("twist2", "full", "4step"):
-        return v
-    if os.environ.get("IYOKAN_FWD_FULL") == "1":
-        return "full"
-    if os.environ.get("IYOKAN_FWD_FULL") == "0":
-        return "4step"
-    # Measured on v5e (G=1024 gate bootstraps): full 2061/s, twist2 884/s
-    # (XLA lowers the batched int8 einsum poorly), 4step 1185/s.  twist2
-    # is the layout of choice *inside* Pallas kernels; full wins under XLA.
-    return "full" if _mm_dtypes()[1] == jnp.int32 else "twist2"
+    """NTT implementation: 'full' (default: one N x N GEMM pair per digit
+    transform), 'twist2' or '4step' (IYOKAN_NTT)."""
+    v = os.environ.get("IYOKAN_NTT", "full")
+    if v not in ("twist2", "full", "4step"):
+        raise ValueError(
+            f"IYOKAN_NTT={v!r}: expected 'full', 'twist2' or '4step'")
+    return v
 
 
 def fwd_digits(x: jnp.ndarray, N: int, primes: Tuple[int, ...], pi: int,
                tab: _PrimeTab) -> jnp.ndarray:
     """Forward NTT of gadget digits (one int8 limb of input).
 
-    Dispatches on IYOKAN_NTT: batched-twist 2-stage (default), whole-matrix
-    (int32 accumulators only), or the original 4-step.
+    Dispatches on IYOKAN_NTT: whole-matrix (default), batched-twist
+    2-stage, or the original 4-step.
     """
     impl = _ntt_impl()
     if impl == "twist2":
         return fwd_twist2(x, N, primes, pi, tab)
-    if impl == "full" and _mm_dtypes()[1] == jnp.int32:
+    if impl == "full":
         fh, fl = full_fwd_tables(N, primes)[pi]
         zh = center_reduce(_mm(x, jnp.asarray(fh)), tab.p)
         return center_reduce((zh << 8) + _mm(x, jnp.asarray(fl)), tab.p)
@@ -732,7 +700,7 @@ def full_inv_tables(N: int, primes: Tuple[int, ...]):
 
 def inv_full(x: jnp.ndarray, N: int, primes: Tuple[int, ...], pi: int,
              tab: _PrimeTab) -> jnp.ndarray:
-    """Inverse NTT via the single-matmul path (int32 accumulators only).
+    """Inverse NTT via the single-matmul path.
 
     Full-range input splits into two radix-256 limbs; the partials
     recombine with two Barretts so every intermediate stays in int32.
@@ -755,7 +723,7 @@ def _inv_dispatch(x: jnp.ndarray, N: int, primes: Tuple[int, ...], pi: int,
     impl = _ntt_impl()
     if impl == "twist2":
         return inv_twist2(x, N, primes, pi, tab)
-    if impl == "full" and _mm_dtypes()[1] == jnp.int32:
+    if impl == "full":
         return inv_full(x, N, primes, pi, tab)
     return _inv(x, N, tab)
 
@@ -783,7 +751,7 @@ def _inv(x: jnp.ndarray, N: int, tab: _PrimeTab, consts=None) -> jnp.ndarray:
 
 
 class MXUBackend:
-    """Exact TRGSW external products via MXU matmul NTTs (see module doc)."""
+    """Exact TRGSW external products via matmul NTTs (see module doc)."""
 
     name = "mxu"
 
@@ -926,11 +894,22 @@ class CRT64Backend:
 _BACKENDS = {"mxu": MXUBackend(), "crt64": CRT64Backend()}
 
 
+_PLATFORM_BACKENDS = {"cpu": "crt64", "gpu": "mxu"}
+
+
 def get_backend(name: str = None):
+    """The polynomial backend by name (IYOKAN_POLY_BACKEND), else the one
+    for JAX's default platform.  A platform without an entry is an error,
+    not a silent choice."""
     if name is None:
         name = os.environ.get("IYOKAN_POLY_BACKEND")
     if name is None:
-        name = "crt64" if jax.default_backend() == "cpu" else "mxu"
+        platform = jax.default_backend()
+        if platform not in _PLATFORM_BACKENDS:
+            raise RuntimeError(
+                f"no polynomial backend for platform {platform!r}; "
+                f"supported: {sorted(_PLATFORM_BACKENDS)}")
+        name = _PLATFORM_BACKENDS[platform]
     return _BACKENDS[name]
 
 
@@ -938,11 +917,10 @@ def get_backend(name: str = None):
 # Toeplitz-slab key expansion (the "tkey" external product)
 # --------------------------------------------------------------------------- #
 #
-# The NTT pipeline spends ~80% of kernel time on VPU modular plumbing
-# (measured by stage ablation of ops/pallas_br3.py).  The tkey form removes
-# the NTT entirely: the negacyclic convolution against the *shared* per-step
-# TRGSW rows is a plain int8 matmul against a precomputed Toeplitz window of
-# the key, exact mod 2^32 by construction -- no primes, no Barrett, no CRT.
+# The tkey form removes the NTT from the gate bootstrap: the negacyclic
+# convolution against the *shared* per-step TRGSW rows is a plain int8
+# matmul against a precomputed Toeplitz window of the key, exact mod 2^32 by
+# construction -- no primes, no Barrett, no CRT (ops.slab_extprod).
 #
 #   out[g, u, 128K + b] = sum_{j,t} ext[g, j, 128(K+1) + t] * slab[j,u][t, b]
 #
@@ -952,15 +930,15 @@ def get_backend(name: str = None):
 # unit impulse d = delta_0 and tested bit-exactly against polymul_u32).
 #
 # The key is limb-decomposed into balanced radix-256 int8 limbs; keeping the
-# top `limbs` of 4 trades HBM (4 limbs = 3.8 GB at cggi128) against
-# truncation error on the dropped limb.  CRITICAL noise asymmetry (found by
-# the round-3 regression test): truncation on the MASK component is
+# top `limbs` of 4 trades device memory (4 limbs, lb=2 = 3.3 GB at cggi128)
+# against truncation error on the dropped limb.  CRITICAL noise asymmetry
+# (found by a regression test): truncation on the MASK component is
 # multiplied by the secret at phase time (x sqrt(N/2) ~ 22x), accumulating
 # to sigma ~2^-6 over n steps -- so host.genevalkey samples bk masks on the
 # 256-grid, making the 3-limb slab EXACT on the mask component; only the
 # b-component truncation remains (enters the phase directly, sigma ~2^-10.6
 # total, negligible vs the 2^-8.8 bootstrap noise; measured: tkey L=3 sigma
-# 2^-9.73 == XLA 2^-9.65, tests/test_noise_and_params.py).
+# 2^-9.73 == NTT path 2^-9.65, tests/test_noise_and_params.py).
 # Replaces the cuFHE NTT bootstrap kernel role (thirdparty/cuFHE).
 
 
@@ -1017,66 +995,27 @@ def tkey_extprod_ref(digits: np.ndarray, slabs: np.ndarray,
 
 
 def tkey_kernel_key(bk_u32: np.ndarray, p: Params, limbs: int = 3,
-                    layout: str = "thin", lb: int = None) -> np.ndarray:
-    """Host: TRGSW rows -> the ops/pallas_tk kernel key layout.
+                    lb: int = None) -> np.ndarray:
+    """Host: TRGSW rows u32 [n, 2l, 2, N] -> the slab key of
+    ops.slab_extprod: int8 [n, (l+lb)*N, 2*limbs*128].
 
-    layout="thin": int8 [n, 2l, N, 2*limbs*128] -- one dot per (j, K).
-    layout="fat":  int8 [n, 2l*N, 2*limbs*128] with contraction rows
-    ordered (t//128, j, t%128), matching the 128-lane-interleaved digit
-    extension -- j folds into the contraction, one dot per K.
-    layout="fat2": int8 [n, 2*(2l*N), C] = the fat slab of the NEGATED key
-    rows followed by the fat slab of the key: output block K is then ONE
-    contiguous-window dot ext . bk[2lN - cut : 2*2lN - cut] (the negacyclic
-    wraparound sign is baked into the first copy), instead of two
-    complementary dots and a subtraction.  The negation happens BEFORE the
-    balanced-limb decomposition (a limb of -128 has no int8 negative).
-    Columns are (u, limb, 128) in all layouts.
+    Contraction rows are ordered (t//128, j, t%128), matching the
+    128-lane-interleaved digit extension, so the j-sum folds into the
+    contraction: one GEMM per step.  Columns are (u, limb, 128).
 
     lb < p.l drops the least-significant b-part gadget rows (asymmetric
     gadget): the b-part decomposition error enters the phase directly
     (not via the secret), so 2 digits add only sigma ~ 2^-9.7 against the
     2^-8.8 bootstrap noise while cutting contraction rows 2l -> l+lb."""
-    if lb is not None and not 1 <= lb <= p.l:
-        # lb=0 would make a fat2 slab's row count collide with the plain
-        # fat layout (2*(l+0) == l+l), so the kernel's row-count layout
-        # inference would silently misread it -- reject early.
+    if lb is None:
+        lb = p.l
+    if not 1 <= lb <= p.l:
         raise ValueError(f"lb={lb} out of range: need 1 <= lb <= l={p.l}")
-    if bk_u32.ndim == 4 and bk_u32.shape[1] == 3 * 2 * p.l:
-        # 2-bit unrolled input (bku): rows per pair step are
-        # (m, part, j)-ordered; the asymmetric gadget drops the
-        # low b-part digits of each of the 3 products.
-        lbe = p.l if lb is None else lb
-        if 3 * (p.l + lbe) <= 4 * p.l:
-            # would collide with a fat2 row count (e.g. l=3, lb=1:
-            # 3*(3+1) == 2*(3+3)); the kernel infers fat2 there
-            raise ValueError(
-                f"unrolled slab with lb={lbe} at l={p.l} is ambiguous "
-                "with a fat2 layout; use a larger lb")
-        if lbe < p.l:
-            zu = bk_u32.reshape(bk_u32.shape[0], 3, 2 * p.l,
-                                *bk_u32.shape[2:])
-            bk_u32 = np.concatenate(
-                [zu[:, :, : p.l], zu[:, :, p.l : p.l + lbe]], axis=2
-            ).reshape(bk_u32.shape[0], 3 * (p.l + lbe), *bk_u32.shape[2:])
-    elif (lb is not None and lb < p.l and bk_u32.ndim == 4
-            and bk_u32.shape[1] == 2 * p.l):
-        bk_u32 = np.concatenate(
-            [bk_u32[:, : p.l], bk_u32[:, p.l : p.l + lb]], axis=1
-        )
-
-    def fat(src):
-        slab = tkey_prep1(src, p, limbs)       # [n, RR, 2, L, N, 128]
-        k = np.transpose(slab, (0, 1, 4, 2, 3, 5))
-        k = np.ascontiguousarray(
-            k.reshape(k.shape[:3] + (2 * limbs * 128,))
-        )                                      # [n, RR, N, 2L*128]
-        if layout == "thin":
-            return k
-        n, RR, N, C = k.shape
-        kf = k.reshape(n, RR, N // 128, 128, C).transpose(0, 2, 1, 3, 4)
-        return np.ascontiguousarray(kf.reshape(n, RR * N, C))
-
-    if layout != "fat2":
-        return fat(bk_u32)
-    neg = ((0 - bk_u32.astype(np.int64)) & 0xFFFFFFFF).astype(np.uint32)
-    return np.concatenate([fat(neg), fat(bk_u32)], axis=1)
+    rows = np.concatenate([bk_u32[:, : p.l], bk_u32[:, p.l : p.l + lb]],
+                          axis=1)
+    slab = tkey_prep1(rows, p, limbs)          # [n, RR, 2, L, N, 128]
+    k = np.transpose(slab, (0, 1, 4, 2, 3, 5))
+    n, RR, N = k.shape[:3]
+    k = k.reshape(n, RR, N // 128, 128, 2 * limbs * 128)
+    return np.ascontiguousarray(
+        k.transpose(0, 2, 1, 3, 4).reshape(n, RR * N, 2 * limbs * 128))

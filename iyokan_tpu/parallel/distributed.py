@@ -3,9 +3,9 @@
 The reference is strictly single-process (SURVEY.md section 2.8); scaling
 beyond one host here follows the standard jax recipe: call
 :func:`initialize` once per process, then build the global mesh -- the
-gate-batch axis spans every chip in the slice, wire exchange between DAG
-levels rides ICI within a host slice and DCN across hosts via the
-all-gathers XLA inserts at the replicated-state scatters.
+gate-batch axis spans every device of the job, and wire exchange between
+DAG levels rides the all-gathers XLA inserts at the replicated-state
+scatters (NCCL over NVLink within a host, the network across hosts).
 """
 
 from __future__ import annotations
@@ -19,10 +19,11 @@ import jax
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """jax.distributed.initialize with env-var fallbacks.
+    """jax.distributed.initialize with env-var fallbacks
+    (IYOKAN_COORDINATOR / IYOKAN_NUM_PROCESSES / IYOKAN_PROCESS_ID).
 
-    On Cloud TPU pods the arguments auto-detect; elsewhere set
-    IYOKAN_COORDINATOR / IYOKAN_NUM_PROCESSES / IYOKAN_PROCESS_ID.
+    Nothing detects a cluster on its own: give the coordinator address
+    (e.g. localhost:<free port>), the process count and this process's id.
     """
     kwargs = {}
     addr = coordinator_address or os.environ.get("IYOKAN_COORDINATOR")

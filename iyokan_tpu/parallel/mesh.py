@@ -9,8 +9,8 @@ that axis with the evaluation keys replicated:
 
   * mesh axis "gates": bootstrap/KS batches sharded along rows; XLA inserts
     the all-gather back to the replicated wire-state array at scatter time
-    (wire exchange between DAG levels rides ICI);
-  * keys (bkntt, ksk, bk2ntt, pksk) replicated on every chip.
+    (wire exchange between DAG levels rides the device interconnect);
+  * keys (bkntt, ksk, bk2ntt, pksk) replicated on every device.
 
 The engines call :func:`shard_batch` on their big batches; with no mesh
 configured the constraint is a no-op, so single-chip and sharded execution
@@ -33,8 +33,8 @@ def _min_rows_per_device() -> int:
     """Bucketing/mesh co-design knob: a level batch is sharded over the
     'gates' axis only when every device gets at least this many rows;
     smaller levels are replicated instead (running a 16-row bootstrap on
-    8 chips would trade a full all-gather for no compute win -- the
-    per-chip batch is below the MXU saturation point either way)."""
+    8 devices would trade a full all-gather for no compute win -- a
+    2-row-per-device GEMM leaves the matrix units idle either way)."""
     return int(os.environ.get("IYOKAN_SHARD_MIN_ROWS", "8"))
 
 
@@ -95,3 +95,23 @@ def replicated(x):
     if mesh is None:
         return x
     return jax.lax.with_sharding_constraint(x, NamedSharding(mesh, P()))
+
+
+def replicated_sharding() -> Optional[NamedSharding]:
+    """The sharding of an array held whole on every device of the active
+    mesh (None without a mesh)."""
+    mesh = _active_mesh
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, P())
+
+
+def replicate_on_mesh(tree):
+    """Place a pytree (host or device arrays) whole on every device of the
+    active mesh.  The engine's state enters its first cycle this way, with
+    the sharding its jitted calls give it back, so the second cycle reuses
+    the first one's compiled programs.  No-op without a mesh."""
+    rep = replicated_sharding()
+    if rep is None:
+        return tree
+    return jax.device_put(tree, rep)

@@ -3,7 +3,7 @@
 Exercises parallel/distributed.py for real: two OS processes initialize via
 a localhost coordinator, build the global 'gates' mesh spanning both
 processes' CPU devices, and run a cross-process psum -- the same
-initialization path a multi-host TPU job takes (SURVEY.md section 2.8: the
+initialization path a multi-host job takes (SURVEY.md section 2.8: the
 reference has no distributed backend; this is designed-in here).
 """
 

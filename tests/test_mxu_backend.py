@@ -1,12 +1,11 @@
-"""Exactness of the MXU (TPU production) polymul backend, run on CPU.
+"""Exactness of the mxu polymul backend (the GPU's), run on CPU.
 
 The default CPU configuration routes to CRT64Backend, so without this test
-the int8/s32 MXU path -- the one the real chip runs -- would have no CI
-coverage.  Both external products are compared bit-for-bit against the
+the int8/s32 matmul-NTT path -- the one the GPU runs for the circuit
+bootstrap and the CMUX memories -- would have no CI coverage.  Both external products are compared bit-for-bit against the
 plain int64 negacyclic convolution mod 2^32 / 2^64.
 """
 
-import os
 
 import numpy as np
 import pytest
@@ -21,16 +20,12 @@ from iyokan_tpu.params import TOY
 
 @pytest.fixture(params=["4step", "full"])
 def mxu_int8(request, monkeypatch):
-    """MXUBackend configured as on TPU (int8 operands, s32 accumulation),
-    with the digit transform in either implementation."""
-    monkeypatch.setenv("IYOKAN_MM_DTYPE", "int8")
-    monkeypatch.setenv("IYOKAN_FWD_FULL",
-                       "1" if request.param == "full" else "0")
-    pm._mm_dtypes.cache_clear()
-    pm._use_full_fwd.cache_clear()
+    """MXUBackend as on the GPU (int8 operands, s32 accumulation), with the
+    digit transform in either implementation."""
+    monkeypatch.setenv("IYOKAN_NTT", request.param)
+    pm._ntt_impl.cache_clear()
     yield pm.MXUBackend()
-    pm._mm_dtypes.cache_clear()
-    pm._use_full_fwd.cache_clear()
+    pm._ntt_impl.cache_clear()
 
 
 def test_extprod1_exact(mxu_int8):

@@ -70,31 +70,28 @@ def test_cggi128_gates():
     sigma = err.std() / 2.0 ** 32
     # documented budget (params.py noise sketch): sigma ~= 2^-8.2.  Assert
     # with ~1.4x headroom so a regression that doubles the variance fails
-    # here, not only in a 100k-gate device run (on-device measurement:
-    # sigma = 2^-8.77 over 102400 gates, 0 errors -- tools/
-    # measure_error_rate.py writes the repeatable JSON record).
+    # here, not only in a 100k-gate device run (tools/measure_error_rate.py
+    # writes the repeatable JSON record of such a run).
     assert sigma < 2.0 ** -7.7, f"sigma = {sigma} (budget ~2^-8.2)"
 
 
 @pytest.mark.slow
 def test_cggi128_device_default_kernel_noise(monkeypatch):
-    """Noise regression for the DEVICE default kernel config.
+    """Noise regression for the default blind-rotation config.
 
-    The TPU engine default is the Toeplitz-slab (tkey) kernel, whose limb
-    truncation adds noise on top of the bootstrap noise (~2^-10.6 sigma at
-    L=3 against the ~2^-8.8 bootstrap sigma, PERF.md round 2).  This runs
-    the full NAND bootstrap through the *same config resolution* the
-    engine uses on device (ops.tkey_default_config: IYOKAN_TKEY_LIMBS /
-    IYOKAN_TK_LAYOUT / IYOKAN_TK_LB defaults) via the interpret-mode
-    kernel on CPU, and asserts the combined bootstrap + truncation +
+    The engine default is the Toeplitz slab, whose limb truncation adds
+    noise on top of the bootstrap noise (~2^-10.6 sigma at L=3 against the
+    ~2^-8.8 bootstrap sigma).  This runs the full NAND bootstrap through
+    the *same config resolution* the engine uses on device
+    (ops.tkey_default_config: IYOKAN_TKEY_LIMBS / IYOKAN_TK_LB defaults)
+    on CPU, and asserts the combined bootstrap + truncation +
     keyswitch sigma against the same documented budget as the XLA path
     (sigma ~= 2^-8.2, asserted at 2^-7.7 = ~1.4x headroom): a future
     config flip that eats the margin fails here, not in a 100k-gate
     device run (tools/measure_error_rate.py)."""
-    monkeypatch.setenv("IYOKAN_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("IYOKAN_BR_IMPL", "tkey")
     p = params_mod.CGGI128
-    L, lay, lb = ops.tkey_default_config(p)
+    L, lb = ops.tkey_default_config(p)
     sk = host.keygen(p, seed=0)
     ek = host.genevalkey(sk, seed=1, with_cb=False)
     out, want = _bootstrap_nand(p, sk, ek, 64, 17)
@@ -106,7 +103,7 @@ def test_cggi128_device_default_kernel_noise(monkeypatch):
     err = np.where(want == 1, signed - p.mu, signed + p.mu)
     sigma = err.std() / 2.0 ** 32
     assert sigma < 2.0 ** -7.7, (
-        f"device default config (limbs={L}, layout={lay}, lb={lb}): "
+        f"device default config (limbs={L}, lb={lb}): "
         f"sigma = {sigma} exceeds the 2^-7.7 budget (expected ~2^-8.2)")
 
 

@@ -68,7 +68,7 @@ def test_full_fwd_matches_4step():
 
 def test_twist2_matches_4step():
     """Batched-twist 2-stage transforms are bit-identical to the 4-step
-    for every prime, both directions, at both levels (exact even in f32)."""
+    for every prime, both directions, at both levels."""
     import numpy as np
     import jax
     import jax.numpy as jnp

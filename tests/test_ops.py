@@ -186,50 +186,33 @@ def test_circuit_bootstrap_unrolled_key(toy, toy_sk, toy_dk, rng):
 
 
 def test_devicekeys_small_batch_routing(toy, toy_ek, monkeypatch):
-    """On the tkey impl every batch size rides the plain slab by default
-    (SMALLG_r04.log: the slab + kmaj beats the bku NTT route at every
-    small G and the unrolled slab loses); the legacy NTT route and the
-    unrolled small-batch slab stay reachable as opt-ins."""
+    """The slab route (default) serves every batch size and builds no
+    unrolled NTT key; the NTT route routes batches of <= 256 rows to its
+    2-bit unrolled key."""
     p = toy
     monkeypatch.setenv("IYOKAN_BR_IMPL", "tkey")
-    monkeypatch.setenv("IYOKAN_TK_LAYOUT", "fat")
     monkeypatch.setenv("IYOKAN_TKEY_LIMBS", "4")
 
     dk = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
-    _, _, lb = ops.tkey_default_config(p)
-    assert dk.bkntt.shape[1] == (p.l + lb) * p.N          # plain slab rows
-    assert dk.bk_tk_small is None   # unrolled small slab is opt-in (loss)
-    assert dk.bkuntt is None        # NTT unrolled key not built by default
+    _, lb = ops.tkey_default_config(p)
+    assert dk.bkntt.dtype == jnp.int8
+    assert dk.bkntt.shape == (p.n, (p.l + lb) * p.N, 2 * 4 * 128)
+    assert dk.bkuntt is None
     for g in (16, 64, 256, 2048):
         assert dk.bk_for(g) is dk.bkntt
 
-    # legacy NTT route still reachable: UNROLL_MAX > 0 builds + routes
-    monkeypatch.setenv("IYOKAN_UNROLL_MAX", "16")
-    dk2 = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
-    assert dk2.bkuntt is not None
-    assert dk2.bk_for(16) is dk2.bkuntt
-    assert dk2.bk_for(17) is dk2.bkntt
-
-    # the unrolled small-batch slab experiment: opt-in via IYOKAN_TK_SMALL
-    monkeypatch.delenv("IYOKAN_UNROLL_MAX")
-    monkeypatch.setenv("IYOKAN_TK_SMALL", "1")
-    dk3 = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
-    assert dk3.bk_tk_small is not None
-    assert dk3.bk_tk_small.shape[1] == 3 * (p.l + lb) * p.N
-    assert dk3.bk_for(256) is dk3.bk_tk_small
-    assert dk3.bk_for(257) is dk3.bkntt
-
-    # non-tkey backends keep the round-3 default (NTT unrolled <= 256)
-    monkeypatch.delenv("IYOKAN_TK_SMALL")
-    monkeypatch.setenv("IYOKAN_BR_IMPL", "xla")
+    monkeypatch.setenv("IYOKAN_BR_IMPL", "ntt")
     dk4 = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
+    assert dk4.bkntt.dtype != jnp.int8
     assert dk4.bkuntt is not None
     assert dk4.bk_for(64) is dk4.bkuntt
+    assert dk4.bk_for(256) is dk4.bkuntt
+    assert dk4.bk_for(257) is dk4.bkntt
     assert dk4.bk_for(1024) is dk4.bkntt
 
 
 def test_keyswitch_i8_limb_path_bitexact(toy, toy_sk, toy_ek, toy_dk, rng):
-    """The int8 balanced-limb key-switch (MXU int8 path on TPU) is
+    """The int8 balanced-limb key-switch (the GPU's int8 GEMM path) is
     bit-identical to the u32 bf16-limb path, for both the identity KS
     and the private functional KS."""
     import jax.numpy as jnp

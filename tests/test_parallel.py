@@ -113,27 +113,25 @@ def test_sharded_ram_cycle(mesh8, toy_sk, toy_ek):
     np.testing.assert_array_equal(res.ram["ramA"][2 * 4 : 3 * 4], [1, 0, 1, 1])
 
 
-def test_tkey_kernel_sharded_over_mesh(mesh8, toy_sk, toy_ek, rng,
-                                       monkeypatch):
-    """The Pallas tkey route under an active mesh: GSPMD cannot partition
-    a pallas_call, so ops.blind_rotate wraps it in shard_map -- each
-    device runs the kernel (kmaj engages at these block sizes) on its own
-    gate rows against the replicated slab.  Output must stay sharded on
-    the gates axis and match the XLA path bit-exactly."""
+def test_tkey_kernel_sharded_over_mesh(mesh8, toy_sk, toy_ek, toy_dk_ntt,
+                                       rng):
+    """The slab route under an active mesh: GSPMD partitions the step's
+    GEMM along the gates axis by itself (no shard_map wrapper), each
+    device running its own gate rows against the replicated slab.
+    Output must stay sharded on the gates axis and match the NTT route
+    bit-exactly."""
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from iyokan_tpu.crypto import host, ops
     from iyokan_tpu.crypto import polymul as pm
 
-    monkeypatch.setenv("IYOKAN_PALLAS_INTERPRET", "1")
     p = toy_ek.params
     G = 64                        # 8 rows/device = IYOKAN_SHARD_MIN_ROWS
     bits = rng.integers(0, 2, G, dtype=np.uint8)
     ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
     testv = jnp.full((p.N,), jnp.uint32(p.mu))
-    bk_tk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4,
-                                           layout="fat"))
+    bk_tk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4))
 
     @jax.jit
     def rot(ct, bk, tv):
@@ -143,9 +141,55 @@ def test_tkey_kernel_sharded_over_mesh(mesh8, toy_sk, toy_ek, rng,
     out = rot(ct, bk_tk, testv)
     assert out.sharding.is_equivalent_to(
         NamedSharding(mesh8, P("gates")), 3)
-    dk = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
-    want = np.asarray(ops.blind_rotate(ct, dk.bkntt, testv, p, dk.backend))
+    want = np.asarray(ops.blind_rotate(ct, toy_dk_ntt.bkntt, testv, p,
+                                       toy_dk_ntt.backend))
     np.testing.assert_array_equal(np.asarray(out), want)
+
+
+def test_device_keys_placed_whole_on_mesh(mesh8, toy_ek):
+    """Keys built under a mesh are placed whole on every device as they
+    are built (one copy per device, none left on the first alone), and
+    are cached apart from the keys built without a mesh."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from iyokan_tpu.crypto import ops
+
+    dk = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=True)
+    for leaf in jax.tree_util.tree_leaves(dk):
+        assert leaf.sharding.is_equivalent_to(
+            NamedSharding(mesh8, P()), leaf.ndim)
+        assert len(leaf.addressable_shards) == 8
+    mesh_mod.set_mesh(None)
+    try:
+        single = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=True)
+    finally:
+        mesh_mod.set_mesh(mesh8)
+    assert single is not dk
+    assert len(single.bkntt.sharding.device_set) == 1
+
+
+def test_sharded_slab_steps_move_no_data(mesh8, toy_ek):
+    """A gates-sharded blind rotation on the slab route compiles to a loop
+    with no collective: each device runs its own gates' windows and GEMM
+    (the windows stack gate-major along the GEMM's M)."""
+    import jax.numpy as jnp
+
+    from iyokan_tpu.crypto import ops
+
+    p = toy_ek.params
+    dk = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
+    testv = jnp.full((p.N,), jnp.uint32(p.mu))
+
+    @jax.jit
+    def rot(ct, bk):
+        return ops.blind_rotate(mesh_mod.shard_batch(ct), bk, testv, p)
+
+    ct = jnp.zeros((64, p.n + 1), jnp.uint32)
+    hlo = rot.lower(ct, dk.bkntt).compile().as_text()
+    assert " dot(" in hlo or "custom-call" in hlo
+    for op in ("all-gather", "all-to-all", "collective-permute",
+               "all-reduce"):
+        assert op not in hlo, op
 
 
 def test_fused_multi_ram_write_shards_refresh(mesh8, toy_sk, toy_ek):

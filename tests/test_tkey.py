@@ -1,12 +1,13 @@
-"""Toeplitz-slab external product / blind rotation (ops/pallas_tk.py).
+"""Toeplitz-slab external product / blind rotation (ops.slab_extprod).
 
 The tkey form computes the negacyclic convolution against the key as int8
-matmuls on precomputed Toeplitz windows, exact mod 2^32: with all 4 limbs
-the blind rotation is bit-identical to the XLA path; the 3-limb default is
-checked at the decrypt level.
+GEMMs on precomputed Toeplitz windows, exact mod 2^32: with all 4 limbs and
+the symmetric gadget the blind rotation is bit-identical to the NTT route;
+the 3-limb, lb=2 default is checked at the decrypt level.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -60,270 +61,68 @@ def test_tkey_truncation_small(toy, rng):
     assert np.abs(err).max() <= bound
 
 
-@pytest.fixture(autouse=True)
-def _interpret(monkeypatch):
-    monkeypatch.setenv("IYOKAN_PALLAS_INTERPRET", "1")
+@pytest.mark.parametrize("limbs", [3, 4])
+@pytest.mark.parametrize("lb", [1, 2, 3])
+def test_slab_step_matches_reference(toy, rng, lb, limbs):
+    """One XLA slab step (digits of a random diff, window GEMM, limb
+    recombination) is bit-identical to the numpy reference of the same
+    slab, for every asymmetric gadget depth and limb count."""
+    p = toy
+    key = rng.integers(0, 1 << 32, (1, 2 * p.l, 2, p.N), dtype=np.uint32)
+    slab = pm.tkey_kernel_key(key, p, limbs, lb=lb)
+    assert slab.shape == (1, (p.l + lb) * p.N, 2 * limbs * 128)
+    diff = rng.integers(0, 1 << 32, (8, 2, p.N), dtype=np.uint32)
+    got = np.asarray(jax.jit(lambda d, s: ops.slab_extprod(d, s, p))(
+        jnp.asarray(diff), jnp.asarray(slab[0])))
+    digits = np.concatenate(
+        [np.asarray(ops.gadget_digits(jnp.asarray(diff[:, 0]), p.l, p)),
+         np.asarray(ops.gadget_digits(jnp.asarray(diff[:, 1]), lb, p))],
+        axis=1)
+    rows = np.concatenate([key[:, : p.l], key[:, p.l : p.l + lb]], axis=1)
+    want = pm.tkey_extprod_ref(digits, pm.tkey_prep1(rows, p, limbs)[0],
+                               limbs)
+    np.testing.assert_array_equal(got, want)
 
 
-def test_tkey_blind_rotate_bitexact_4limb(toy, toy_ek, toy_dk, toy_sk, rng):
-    """4-limb tkey blind rotation is bit-identical to the XLA path."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
+def test_tkey_blind_rotate_bitexact_4limb(toy, toy_ek, toy_dk_ntt, toy_sk,
+                                          rng):
+    """4-limb symmetric slab blind rotation is bit-identical to the NTT
+    route."""
     p = toy
     bits = rng.integers(0, 2, 8, dtype=np.uint8)
     ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
     testv = jnp.full((p.N,), jnp.uint32(p.mu))
 
     bk_tk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4))
-    got = np.asarray(blind_rotate_tkey(ct, bk_tk, testv, p, block_g=8))
-    want = np.asarray(ops.blind_rotate(ct, toy_dk.bkntt, testv, p,
-                                       toy_dk.backend))
+    got = np.asarray(ops.blind_rotate(ct, bk_tk, testv, p))
+    want = np.asarray(ops.blind_rotate(ct, toy_dk_ntt.bkntt, testv, p,
+                                       toy_dk_ntt.backend))
     np.testing.assert_array_equal(got, want)
 
 
-def test_tkey_blind_rotate_fat_layout(toy, toy_ek, toy_dk, toy_sk, rng):
-    """Fat-layout key (j folded into the contraction) == thin layout."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
+def test_tkey_blind_rotate_fat_layout(toy, rng):
+    """Slab rows are ordered (128-lane block, digit row j, lane), columns
+    (part u, limb, lane): the kernel key is the reordered Toeplitz slab of
+    tkey_prep1."""
     p = toy
-    bits = rng.integers(0, 2, 8, dtype=np.uint8)
-    ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
-    testv = jnp.full((p.N,), jnp.uint32(p.mu))
-
-    bk_fat = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4,
-                                            layout="fat"))
-    got = np.asarray(blind_rotate_tkey(ct, bk_fat, testv, p, block_g=8))
-    want = np.asarray(ops.blind_rotate(ct, toy_dk.bkntt, testv, p,
-                                       toy_dk.backend))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_tkey_pipelined_blind_rotate_bitexact_4limb(toy, toy_ek, toy_dk,
-                                                    toy_sk, rng):
-    """Two-chain software-pipelined kernel == XLA path, bit-exact at
-    4 limbs (same math, interleaved schedule)."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
-    p = toy
-    bits = rng.integers(0, 2, 16, dtype=np.uint8)
-    ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
-    testv = jnp.full((p.N,), jnp.uint32(p.mu))
-
-    bk_fat = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4,
-                                            layout="fat"))
-    # G = 16 with block_g = 8 -> the pipelined two-chain path
-    got = np.asarray(blind_rotate_tkey(ct, bk_fat, testv, p, block_g=8))
-    want = np.asarray(ops.blind_rotate(ct, toy_dk.bkntt, testv, p,
-                                       toy_dk.backend))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_tkey_deep_dma_slots_bitexact(toy, toy_ek, toy_dk, toy_sk, rng,
-                                      monkeypatch):
-    """S-deep DMA pipelining (IYOKAN_TK_SLOTS > 2) == XLA path: the
-    buffering depth is pure schedule, never math.  Small batches default
-    to slots=4 (the step loop is DMA-bound there); this pins the slot
-    indexing (wait i%S after starting i+S-1) at S=3 and S=4."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
-    p = toy
-    bits = rng.integers(0, 2, 16, dtype=np.uint8)
-    ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
-    testv = jnp.full((p.N,), jnp.uint32(p.mu))
-
-    bk_fat = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4,
-                                            layout="fat"))
-    want = np.asarray(ops.blind_rotate(ct, toy_dk.bkntt, testv, p,
-                                       toy_dk.backend))
-    for s in ("3", "4"):
-        monkeypatch.setenv("IYOKAN_TK_SLOTS", s)
-        got = np.asarray(blind_rotate_tkey(ct, bk_fat, testv, p,
-                                           block_g=8))
-        np.testing.assert_array_equal(got, want)
-
-
-def test_tkey_fat2_blind_rotate_bitexact_4limb(toy, toy_ek, toy_dk,
-                                               toy_sk, rng):
-    """Doubled-slab (fat2) layout == XLA path on both the serial (G=8)
-    and pipelined (G=16) kernels, bit-exact at 4 limbs."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
-    p = toy
-    bits = rng.integers(0, 2, 16, dtype=np.uint8)
-    ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
-    testv = jnp.full((p.N,), jnp.uint32(p.mu))
-
-    bk2x = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4,
-                                          layout="fat2"))
-    want = np.asarray(ops.blind_rotate(ct, toy_dk.bkntt, testv, p,
-                                       toy_dk.backend))
-    got_pipe = np.asarray(blind_rotate_tkey(ct, bk2x, testv, p, block_g=8))
-    np.testing.assert_array_equal(got_pipe, want)
-    got_serial = np.asarray(
-        blind_rotate_tkey(ct[:8], bk2x, testv, p, block_g=8))
-    np.testing.assert_array_equal(got_serial, want[:8])
-
-
-def test_tkey_kmaj_blind_rotate_bitexact_4limb(toy, toy_ek, toy_dk,
-                                               toy_sk, rng, monkeypatch):
-    """K-major small-batch mode (the 8 output-block dots stacked along
-    the matmul M dimension as negacyclic rotations of the digit
-    extension) == XLA path, bit-exact at 4 limbs, on both the fat and
-    the doubled-slab key layouts."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
-    p = toy
-    bits = rng.integers(0, 2, 16, dtype=np.uint8)
-    ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
-    testv = jnp.full((p.N,), jnp.uint32(p.mu))
-    want = np.asarray(ops.blind_rotate(ct, toy_dk.bkntt, testv, p,
-                                       toy_dk.backend))
-
-    # G=16, block_g=8 -> BG=8 < 128, kmaj engages under auto
-    monkeypatch.setenv("IYOKAN_TK_KMAJ", "1")
-    for layout in ("fat", "fat2"):
-        bk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4,
-                                            layout=layout))
-        got = np.asarray(blind_rotate_tkey(ct, bk, testv, p, block_g=8))
-        np.testing.assert_array_equal(got, want, err_msg=layout)
-
-
-def test_tkey_kmaj_asymmetric_small_batch(toy, toy_sk, toy_ek, rng,
-                                          monkeypatch):
-    """Small odd batch (G=5 -> padded, BG=8, auto-kmaj) through the
-    asymmetric lb=2 slab decrypts NAND correctly -- exercises the
-    small-G block sizing that routes task-graph levels here."""
-    from iyokan_tpu.ops import pallas_tk
-
-    p = toy
-    bk_tk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, 4, "fat", lb=2))
-    a = np.array([0, 0, 1, 1, 0], np.uint8)
-    b = np.array([0, 1, 0, 1, 1], np.uint8)
-    A = jnp.asarray(host.encrypt_bits(toy_sk, a, rng))
-    B = jnp.asarray(host.encrypt_bits(toy_sk, b, rng))
-    ca, cb, kk = gates.GATE_LIN[gates.NAND]
-    pre = ops.gate_linear(A, B, jnp.full((5,), ca, jnp.int32),
-                          jnp.full((5,), cb, jnp.int32),
-                          jnp.full((5,), kk, jnp.int32), p)
-    testv = jnp.full((p.N,), np.uint32(p.mu))
-    tr = pallas_tk.blind_rotate_tkey(pre, bk_tk, testv, p)
-    ph = host.trlwe1_phase(toy_sk, np.asarray(tr))[:, 0]
-    got = (np.asarray(ph) < (1 << 31)).astype(np.uint8)
-    np.testing.assert_array_equal(got, 1 - (a & b))
-
-
-def test_tkey_pipe_compile_failure_reroutes(toy, toy_ek, toy_dk, toy_sk,
-                                            rng, monkeypatch):
-    """A pipe-kernel shape that fails Mosaic compilation (kmaj at BG=128,
-    SMALLG_r03.log; the plain pipe at BG=128, SMALLG_r04.log) must walk
-    the candidate ladder INSIDE blind_rotate_tkey -- not via an external
-    watcher script.  Probe failures are simulated for the first
-    candidates; the reroute must still produce the exact blind-rotation
-    result and warn."""
-    import warnings
-
-    from iyokan_tpu.ops import pallas_tk
-
-    p = toy
-    bits = rng.integers(0, 2, 16, dtype=np.uint8)
-    ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
-    testv = jnp.full((p.N,), jnp.uint32(p.mu))
-    want = np.asarray(ops.blind_rotate(ct, toy_dk.bkntt, testv, p,
-                                       toy_dk.backend))
-    bk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4,
-                                        layout="fat"))
-
-    fails = []
-
-    def boom(p_, Gp, BG, *a, **k):
-        fails.append(BG)
-        if len(fails) <= 1:     # the preferred candidate "fails"
-            raise RuntimeError("MosaicError: simulated compile failure")
-
-    monkeypatch.setattr(pallas_tk, "_probe_compile", boom)
-    monkeypatch.setenv("IYOKAN_TK_KMAJ", "1")     # prefer the failing mode
-    monkeypatch.setenv("IYOKAN_TK_PRECHECK", "1")  # probe under interpret
-    pallas_tk._pipe_compile_ok.cache_clear()
-    try:
-        with warnings.catch_warnings(record=True) as ws:
-            warnings.simplefilter("always")
-            got = np.asarray(
-                pallas_tk.blind_rotate_tkey(ct, bk, testv, p, block_g=8))
-        np.testing.assert_array_equal(got, want)
-        assert len(fails) == 2      # one refusal, second candidate runs
-        assert sum("rerouting" in str(w.message) for w in ws) == 1, (
-            [str(w.message) for w in ws])
-        # verdicts are cached: a second call must not re-probe
-        n_probes = len(fails)
-        got2 = np.asarray(
-            pallas_tk.blind_rotate_tkey(ct, bk, testv, p, block_g=8))
-        np.testing.assert_array_equal(got2, want)
-        assert len(fails) == n_probes
-    finally:
-        pallas_tk._pipe_compile_ok.cache_clear()
-
-
-def test_tkey_unrolled_blind_rotate_bitexact_4limb(toy, toy_ek, toy_dk,
-                                                   toy_sk, rng, monkeypatch):
-    """2-bit unrolled slab key == the XLA unrolled (bku) path, bit-exact
-    at 4 limbs, on BOTH the serial and the pipelined kernels: same
-    pair-step algebra, matmul form."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
-    p = toy
-    assert toy_dk.bkuntt is not None
-    bits = rng.integers(0, 2, 16, dtype=np.uint8)
-    ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
-    testv = jnp.full((p.N,), jnp.uint32(p.mu))
-
-    bku = toy_ek.bku.reshape(toy_ek.bku.shape[0], 6 * p.l, 2, p.N)
-    bk_tk = jnp.asarray(pm.tkey_kernel_key(bku, p, limbs=4, layout="fat"))
-    want = np.asarray(ops.blind_rotate(ct, toy_dk.bkuntt, testv, p,
-                                       toy_dk.backend))
-    for pipe in ("0", "1"):
-        monkeypatch.setenv("IYOKAN_TK_PIPE", pipe)
-        got = np.asarray(blind_rotate_tkey(ct, bk_tk, testv, p, block_g=8))
-        np.testing.assert_array_equal(got, want, err_msg=f"pipe={pipe}")
-
-
-def test_tkey_unrolled_asymmetric_gates(toy, toy_sk, toy_ek, rng,
-                                        monkeypatch):
-    """Unrolled slab + asymmetric gadget (lb < l, dropped low b-part
-    digits of each of the 3 pair products): NAND decrypts correctly
-    through the pipelined kernel, and the ambiguous lb is refused."""
-    from iyokan_tpu.ops import pallas_tk
-
-    p = toy
-    lb = max(1, p.l - 1)
-    bku = toy_ek.bku.reshape(toy_ek.bku.shape[0], 6 * p.l, 2, p.N)
-    bk_tk = jnp.asarray(pm.tkey_kernel_key(bku, p, 4, "fat", lb=lb))
-    assert bk_tk.shape[1] == 3 * (p.l + lb) * p.N
-
-    a = np.array([0, 0, 1, 1] * 4, np.uint8)
-    b = np.array([0, 1, 0, 1] * 4, np.uint8)
-    A = jnp.asarray(host.encrypt_bits(toy_sk, a, rng))
-    B = jnp.asarray(host.encrypt_bits(toy_sk, b, rng))
-    ca, cb, kk = gates.GATE_LIN[gates.NAND]
-    pre = ops.gate_linear(A, B, jnp.full((16,), ca, jnp.int32),
-                          jnp.full((16,), cb, jnp.int32),
-                          jnp.full((16,), kk, jnp.int32), p)
-    testv = jnp.full((p.N,), np.uint32(p.mu))
-    monkeypatch.setenv("IYOKAN_PALLAS_BG", "8")
-    tr = pallas_tk.blind_rotate_tkey(pre, bk_tk, testv, p)
-    ph = host.trlwe1_phase(toy_sk, np.asarray(tr))[:, 0]
-    got = (np.asarray(ph) < (1 << 31)).astype(np.uint8)
-    np.testing.assert_array_equal(got, 1 - (a & b))
-
-    # l=3, lb=1 collides with fat2's row count -> build must refuse
-    if p.l == 3:
-        with pytest.raises(ValueError, match="ambiguous"):
-            pm.tkey_kernel_key(bku, p, 4, "fat", lb=1)
+    lb, L = 2, 3
+    key = rng.integers(0, 1 << 32, (2, 2 * p.l, 2, p.N), dtype=np.uint32)
+    slab = pm.tkey_kernel_key(key, p, L, lb=lb)
+    rows = np.concatenate([key[:, : p.l], key[:, p.l : p.l + lb]], axis=1)
+    prep = pm.tkey_prep1(rows, p, L)            # [n, RR, 2, L, N, 128]
+    RR = p.l + lb
+    for (i, b, j, t, u, li) in [(0, 0, 0, 0, 0, 0), (1, 1, 3, 77, 1, 2),
+                                (0, p.N // 128 - 1, RR - 1, 127, 1, 0)]:
+        row = (b * RR + j) * 128 + t
+        np.testing.assert_array_equal(
+            slab[i, row, (u * L + li) * 128:(u * L + li + 1) * 128],
+            prep[i, j, u, li, 128 * b + t])
 
 
 def test_stale_unquantized_key_warns(toy, toy_sk, monkeypatch):
     """An eval key with full-torus masks (pre-quantization snapshot or
     IYOKAN_BK_MASK_BITS=32) triggers a warning when prepared for the
-    truncated slab kernel: such keys ride it with ~2^-6 phase noise."""
+    truncated slab: such keys ride it with ~2^-6 phase noise."""
     monkeypatch.setenv("IYOKAN_BK_MASK_BITS", "32")
     ek = host.genevalkey(toy_sk, seed=7, with_cb=False)
     assert np.any(ek.bk[:, :, 0, :] & 0xFF)     # masks really unquantized
@@ -333,8 +132,8 @@ def test_stale_unquantized_key_warns(toy, toy_sk, monkeypatch):
 
 
 def test_quantized_key_no_warning(toy, toy_ek, monkeypatch, recwarn):
-    """Default keygen (256-grid masks) prepares for the slab kernel
-    without the stale-key warning."""
+    """Default keygen (256-grid masks) prepares for the slab without the
+    stale-key warning."""
     assert not np.any(toy_ek.bk[:, :, 0, :] & 0xFF)
     monkeypatch.setenv("IYOKAN_BR_IMPL", "tkey")
     ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
@@ -342,9 +141,7 @@ def test_quantized_key_no_warning(toy, toy_ek, monkeypatch, recwarn):
 
 
 def test_tkey_gate_bootstrap_truth_tables(toy, toy_sk, toy_dk, toy_ek, rng):
-    """3-limb default: NAND/XOR truth tables through the tkey kernel."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
+    """3-limb default: NAND/XOR truth tables through the slab route."""
     p = toy
     combos = [(0, 0), (0, 1), (1, 0), (1, 1)]
     kinds = [gates.NAND, gates.XOR]
@@ -362,7 +159,7 @@ def test_tkey_gate_bootstrap_truth_tables(toy, toy_sk, toy_dk, toy_ek, rng):
                           jnp.asarray(ks, jnp.int32), p)
     testv = jnp.full((p.N,), jnp.uint32(p.mu))
     bk_tk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=3))
-    acc = blind_rotate_tkey(pre, bk_tk, testv, p, block_g=8)
+    acc = ops.blind_rotate(pre, bk_tk, testv, p)
     t1 = ops.sample_extract(acc, 0)
     out = ops.keyswitch_10(t1, toy_dk.ksk_mat, p)
 
@@ -382,83 +179,49 @@ def test_tkey_gate_bootstrap_truth_tables(toy, toy_sk, toy_dk, toy_ek, rng):
             i += 1
 
 
-def test_tkey_asymmetric_gadget_gates(toy, toy_sk, toy_ek, rng, monkeypatch):
+def test_tkey_asymmetric_gadget_gates(toy, toy_sk, toy_ek, rng):
     """lb=2 asymmetric slab (5 contraction rows instead of 6): the b-part
     decomposition error enters the phase directly (~2^-9.7 sigma at
     cggi128), so decrypted gate results stay correct."""
-    import jax.numpy as jnp
-    from iyokan_tpu import gates as G
-    from iyokan_tpu.crypto import host, ops, polymul
-    from iyokan_tpu.ops import pallas_tk
-
     p = toy
-    bk_tk = jnp.asarray(polymul.tkey_kernel_key(toy_ek.bk, p, 4, "fat", lb=2))
+    bk_tk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, 4, lb=2))
+    assert bk_tk.shape[1] == (p.l + 2) * p.N
     a = np.array([0, 0, 1, 1] * 4, np.uint8)
     b = np.array([0, 1, 0, 1] * 4, np.uint8)
     A = jnp.asarray(host.encrypt_bits(toy_sk, a, rng))
     B = jnp.asarray(host.encrypt_bits(toy_sk, b, rng))
-    ca, cb, kk = G.GATE_LIN[G.NAND]
+    ca, cb, kk = gates.GATE_LIN[gates.NAND]
     pre = ops.gate_linear(A, B, jnp.full((16,), ca, jnp.int32),
                           jnp.full((16,), cb, jnp.int32),
                           jnp.full((16,), kk, jnp.int32), p)
-    for pipe in ("0", "1"):
-        monkeypatch.setenv("IYOKAN_TK_PIPE", pipe)
-        monkeypatch.setenv("IYOKAN_PALLAS_BG", "8")
-        testv = jnp.full((p.N,), np.uint32(p.mu))
-        tr = pallas_tk.blind_rotate_tkey(pre, bk_tk, testv, p)
-        ph = host.trlwe1_phase(toy_sk, np.asarray(tr))[:, 0]
-        got = (np.asarray(ph) < (1 << 31)).astype(np.uint8)
-        np.testing.assert_array_equal(got, 1 - (a & b),
-                                      err_msg=f"pipe={pipe}")
+    testv = jnp.full((p.N,), np.uint32(p.mu))
+    tr = ops.blind_rotate(pre, bk_tk, testv, p)
+    ph = host.trlwe1_phase(toy_sk, np.asarray(tr))[:, 0]
+    got = (np.asarray(ph) < (1 << 31)).astype(np.uint8)
+    np.testing.assert_array_equal(got, 1 - (a & b))
 
 
-def test_tkey_awkward_batch_sizes(toy, toy_ek, toy_dk, toy_sk, rng):
-    """Non-power-of-two batch sizes (the engine's nb + 2*nm bucket sums:
-    96, 192, 320...) pick pow2 block sizes and pad -- the BG=96-class
-    shapes miscompiled on device (SMALLG_r04.log).  Bit-exact at 4 limbs
-    across the block-size ladder."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
+def test_tkey_awkward_batch_sizes(toy, toy_ek, toy_dk_ntt, toy_sk, rng):
+    """Any batch size (odd ones, and the engine's nb + 2*nm bucket sums
+    96, 192) rides the slab route unpadded, bit-exact at 4 limbs."""
     p = toy
-    bk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4,
-                                        layout="fat"))
+    bk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4))
     testv = jnp.full((p.N,), jnp.uint32(p.mu))
     for G in (5, 24, 96, 192):
         bits = rng.integers(0, 2, G, dtype=np.uint8)
         ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
-        want = np.asarray(ops.blind_rotate(ct, toy_dk.bkntt, testv, p,
-                                           toy_dk.backend))
-        got = np.asarray(blind_rotate_tkey(ct, bk, testv, p))
+        want = np.asarray(ops.blind_rotate(ct, toy_dk_ntt.bkntt, testv, p,
+                                           toy_dk_ntt.backend))
+        got = np.asarray(ops.blind_rotate(ct, bk, testv, p))
         np.testing.assert_array_equal(got, want, err_msg=f"G={G}")
 
 
-def test_tkey_kmaj_i8_assembly_bitexact(toy, toy_ek, toy_dk, toy_sk, rng,
-                                        monkeypatch):
-    """The kmaj i8 row-assembly fast path (BG % 32 == 0) is bit-identical
-    to the i32-assembled form and the XLA path."""
-    from iyokan_tpu.ops.pallas_tk import blind_rotate_tkey
-
-    p = toy
-    monkeypatch.setenv("IYOKAN_TK_KMAJ", "1")
-    bits = rng.integers(0, 2, 64, dtype=np.uint8)
-    ct = jnp.asarray(host.encrypt_bits(toy_sk, bits, rng))
-    testv = jnp.full((p.N,), jnp.uint32(p.mu))
-    want = np.asarray(ops.blind_rotate(ct, toy_dk.bkntt, testv, p,
-                                       toy_dk.backend))
-    bk = jnp.asarray(pm.tkey_kernel_key(toy_ek.bk, p, limbs=4,
-                                        layout="fat"))
-    # block_g=32 -> BG=32: i8 assembly; block_g=8 -> BG=8: i32 assembly
-    for bg in (32, 8):
-        got = np.asarray(blind_rotate_tkey(ct, bk, testv, p, block_g=bg))
-        np.testing.assert_array_equal(got, want, err_msg=f"BG={bg}")
-
-
 def test_tkey_slab_disk_cache_roundtrip(toy, toy_ek, tmp_path, monkeypatch):
-    """The on-disk slab cache returns the identical expansion.
+    """The opt-in on-disk slab cache returns the identical expansion.
 
-    A fresh process pays ~31 s of host Toeplitz expansion at cggi128
-    otherwise (ops._slab_disk_path); the cache must be keyed so a second
-    build in a clean in-process LRU loads the same bytes from disk."""
+    Processes that share a key can skip the host Toeplitz expansion
+    (ops._slab_disk_path); the cache must be keyed so a second build in a
+    clean in-process LRU loads the same bytes from disk."""
     monkeypatch.setenv("IYOKAN_BR_IMPL", "tkey")
     monkeypatch.setenv("IYOKAN_SLAB_CACHE", str(tmp_path))
     monkeypatch.setattr(ops, "_DEVICE_KEY_CACHE", type(
@@ -475,3 +238,49 @@ def test_tkey_slab_disk_cache_roundtrip(toy, toy_ek, tmp_path, monkeypatch):
     ops._DEVICE_KEY_CACHE.clear()
     k3 = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
     np.testing.assert_array_equal(np.asarray(k1.bkntt), np.asarray(k3.bkntt))
+
+
+def test_gpu_platform_routes_to_slab(toy, toy_sk, toy_ek, rng, monkeypatch):
+    """With JAX reporting a GPU, the engine's default keys take the
+    matrix-unit polynomial backend and the XLA slab route for gate
+    bootstraps, and nothing imports a Pallas kernel."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.delenv("IYOKAN_BR_IMPL", raising=False)
+    monkeypatch.delenv("IYOKAN_POLY_BACKEND", raising=False)
+    monkeypatch.setattr(ops, "_DEVICE_KEY_CACHE", type(
+        ops._DEVICE_KEY_CACHE)())
+    assert pm.get_backend().name == "mxu"
+    dk = ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
+    assert dk.backend.name == "mxu"
+    assert dk.bkntt.dtype == jnp.int8          # the slab, not an NTT prep
+    assert dk.ksk_mat.dtype == jnp.int8        # int8 limb key switch
+    a = np.array([0, 0, 1, 1], np.uint8)
+    b = np.array([0, 1, 0, 1], np.uint8)
+    A = jnp.asarray(host.encrypt_bits(toy_sk, a, rng))
+    B = jnp.asarray(host.encrypt_bits(toy_sk, b, rng))
+    ca, cb, kk = gates.GATE_LIN[gates.NAND]
+    pre = ops.gate_linear(A, B, jnp.full((4,), ca, jnp.int32),
+                          jnp.full((4,), cb, jnp.int32),
+                          jnp.full((4,), kk, jnp.int32), toy)
+    t1 = ops.gate_bootstrap_tlwe1(pre, dk.bk_for(4), toy, dk.backend)
+    out = ops.keyswitch_10(t1, dk.ksk_mat, toy)
+    np.testing.assert_array_equal(
+        host.decrypt_bits(toy_sk, np.asarray(out)), 1 - (a & b))
+    assert not [m for m in sys.modules
+                if m.startswith(("iyokan_tpu.ops", "jax.experimental.pallas"))]
+
+
+def test_unknown_platform_raises(monkeypatch):
+    """A platform without a polynomial backend is an error, not a
+    silent default."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "metal")
+    monkeypatch.delenv("IYOKAN_POLY_BACKEND", raising=False)
+    with pytest.raises(RuntimeError, match="no polynomial backend"):
+        pm.get_backend()
+
+
+def test_unknown_br_impl_raises(toy_ek, monkeypatch):
+    """Blind-rotation routes that no longer exist are refused by name."""
+    monkeypatch.setenv("IYOKAN_BR_IMPL", "pallas")
+    with pytest.raises(ValueError, match="IYOKAN_BR_IMPL"):
+        ops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
